@@ -1,0 +1,194 @@
+"""Configuration schema (port of ``repro.configs.base``).
+
+``ModelConfig`` is the frozen dataclass every module of the port consumes;
+``FabricConfig``/``PortSpec`` describe the memory-movement fabric.  Field
+names, defaults and validation are the reference's, so a config built on
+either side names the same model; only :attr:`ModelConfig.param_dtype`
+returns a ``torch.dtype``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class PortSpec:
+    """One logical stream attached to the fabric (an accelerator-side port).
+
+    ``offset``/``words`` are the stream's extent on the packed burst's word
+    axis (the per-port head/tail pointers of the paper's §III-C);
+    ``gathered``/``pool_words`` mark a sparse-extent stream whose lines are
+    named by a frame-index operand into a larger backing pool, and record
+    the backing extent the gather-after-burst form would have moved."""
+    name: str
+    direction: str = "read"       # read | write
+    lanes: int = 1                # W_acc multiplier for this stream
+    offset: int = 0               # word-axis offset within the packed burst
+    words: int = 0                # word-axis extent (0 = not yet scheduled)
+    gathered: bool = False        # sparse extent: lines named by an index list
+    pool_words: int = 0           # backing extent the gather indices address
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricConfig:
+    """Parameters of the memory-movement fabric (paper §III design point).
+
+    ``n_ports`` is N = W_line / W_acc, ``lane_width`` the per-port word
+    width W_acc in elements.  ``impl`` selects the data-transfer network
+    ("medusa" exchange network or the "oracle" permute; "crossbar" and
+    "fused" are ported in a later slice).  ``page_size`` is the KV-cache
+    page in timesteps, ``pack`` the burst layout, ``word_fold`` the
+    machine-word lane folding cap, ``paged_pool``/``fused_gather`` the
+    serving engine's KV storage and where its page gather runs.  The
+    remaining fields are carried for parity with the reference config."""
+    n_ports: int = 8
+    lane_width: int = 64
+    impl: str = "medusa"          # medusa | crossbar | oracle | fused
+    tile: int = 0
+    burst_len: int = 32
+    page_size: int = 64
+    pack: str = "packed"          # packed | pad
+    word_fold: "str | int" = "auto"   # auto | 1 | 2 | 4
+    paged_pool: bool = True       # serving engine: shared physical page pool
+    fused_gather: "str | bool" = "auto"   # auto | True | False
+    pool_shards: int = 1          # pool-axis shards over the device mesh
+    collective: str = "all_to_all"    # all_to_all | ring
+    preempt: str = "swap"         # swap | recompute | off
+    swap_space_pages: int = 0     # host swap-space cap in pages (0 = unbounded)
+
+    @property
+    def line_width(self) -> int:
+        """W_line: elements per DRAM line."""
+        return self.n_ports * self.lane_width
+
+    @property
+    def fused_gather_on(self) -> bool:
+        """Whether the paged gather/scatter is part of the fabric contract
+        (sparse-extent bursts) rather than a consumer-side postprocess."""
+        if self.fused_gather == "auto":
+            return self.paged_pool
+        return bool(self.fused_gather)
+
+    def validate(self) -> "FabricConfig":
+        if self.impl not in ("medusa", "crossbar", "oracle", "fused"):
+            raise ValueError(f"unknown fabric impl {self.impl!r}")
+        if self.pack not in ("packed", "pad"):
+            raise ValueError(f"unknown burst packing {self.pack!r}")
+        if self.word_fold not in ("auto", 1, 2, 4):
+            raise ValueError(f"word_fold must be 'auto', 1, 2 or 4, "
+                             f"got {self.word_fold!r}")
+        if self.fused_gather not in ("auto", True, False):
+            raise ValueError(f"fused_gather must be 'auto', True or False, "
+                             f"got {self.fused_gather!r}")
+        if self.pool_shards < 1:
+            raise ValueError(f"pool_shards must be >= 1, "
+                             f"got {self.pool_shards}")
+        if self.collective not in ("all_to_all", "ring"):
+            raise ValueError(f"collective must be 'all_to_all' or 'ring', "
+                             f"got {self.collective!r}")
+        if self.preempt not in ("swap", "recompute", "off"):
+            raise ValueError(f"preempt must be 'swap', 'recompute' or 'off', "
+                             f"got {self.preempt!r}")
+        if self.swap_space_pages < 0:
+            raise ValueError(f"swap_space_pages must be >= 0, "
+                             f"got {self.swap_space_pages}")
+        if self.n_ports < 1 or self.lane_width < 1:
+            raise ValueError(f"bad fabric geometry N={self.n_ports} "
+                             f"W_acc={self.lane_width}")
+        if self.page_size < 1 or self.burst_len < 1:
+            raise ValueError(f"bad fabric buffering page_size={self.page_size} "
+                             f"burst_len={self.burst_len}")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One architecture.  The sub-family configs of the reference (MoE,
+    SSM, RG-LRU) come with their slices; the fields this slice's dense
+    decoder reads are the reference's, with the same defaults."""
+    name: str
+    family: str                   # dense | ssm | hybrid | moe | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 → d_model // n_heads
+    block_pattern: str = "A"      # 'A' full attention (this slice)
+    sliding_window: int = 0
+    rope_theta: float = 10_000.0
+    rope_theta_global: float = 0.0
+    norm: str = "rms"             # rms | ln
+    mlp: str = "swiglu"           # swiglu | geglu | gelu
+    tie_embeddings: bool = True
+    moe: Optional[object] = None
+    ssm: Optional[object] = None
+    rglru: Optional[object] = None
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+    n_patches: int = 0
+    dtype: str = "bfloat16"
+    remat: str = "full"
+    scan_layers: bool = True
+    kv_layout: str = "medusa"     # medusa | crossbar | oracle | fused
+    fabric: Optional[FabricConfig] = None
+    serve_fsdp: bool = False
+    spec_heads: int = 0
+    sharding_profile: str = "tp_heads"
+    subquadratic: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def resolved_fabric(self) -> FabricConfig:
+        """The fabric this model moves memory through.  An explicit
+        ``fabric`` wins; otherwise each KV head is a port (N = n_kv_heads)
+        and a port word is one head vector (W_acc = head_dim)."""
+        if self.fabric is not None:
+            return self.fabric.validate()
+        return FabricConfig(
+            n_ports=max(self.n_kv_heads, 1),
+            lane_width=self.resolved_head_dim or 1,
+            impl=self.kv_layout).validate()
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def layer_types(self) -> Tuple[str, ...]:
+        pat = self.block_pattern
+        reps = -(-self.n_layers // len(pat))
+        return tuple((pat * reps)[: self.n_layers])
+
+    def _attn_params(self) -> int:
+        hd = self.resolved_head_dim
+        q = self.d_model * self.n_heads * hd
+        kv = 2 * self.d_model * self.n_kv_heads * hd
+        o = self.n_heads * hd * self.d_model
+        return q + kv + o
+
+    def _mlp_params(self, d_ff: int) -> int:
+        mult = 3 if self.mlp in ("swiglu", "geglu") else 2
+        return mult * self.d_model * d_ff
+
+    def param_count(self) -> int:
+        """Total parameter count (embeddings included once if tied) for the
+        attention-only families this slice ports."""
+        if self.moe is not None or self.encoder_layers or any(
+                t not in ("A", "L") for t in self.layer_types()):
+            raise NotImplementedError(
+                "param_count covers attention-only dense configs in this "
+                "slice (ROADMAP §1: other families)")
+        total = self.vocab_size * self.d_model * (
+            1 if self.tie_embeddings else 2)
+        for _ in self.layer_types():
+            total += (self._attn_params() + self._mlp_params(self.d_ff)
+                      + 2 * self.d_model)
+        return total

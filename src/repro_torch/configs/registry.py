@@ -1,0 +1,30 @@
+"""Architecture registry: ``--arch <id>`` resolution (port of
+``repro.configs.registry``).  Only the ported architectures are listed;
+the others come with their slices (ROADMAP §1)."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import FabricConfig, ModelConfig
+
+ARCHS = {
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
+    return importlib.import_module(ARCHS[arch]).CONFIG
+
+
+def get_smoke(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
+    return importlib.import_module(ARCHS[arch]).smoke()
+
+
+def get_fabric(arch: str) -> FabricConfig:
+    """The memory-movement fabric an architecture names."""
+    return get_config(arch).resolved_fabric

@@ -1,0 +1,60 @@
+"""Carry the reference's parameters across: ``params_from_jax``.
+
+The input is the reference's parameter tree with every leaf already a
+numpy array (``{"embed": {"table"}, "unit": [stacked block dicts], "tail":
+[...], "final_norm": {...}}``), so this module needs no JAX.  Weights keep
+the reference's ``[d_in, d_out]`` orientation (the port computes ``x @ w``
+too, so nothing is transposed); the stacked ``unit`` axis splits into one
+:class:`repro_torch.models.lm.Block` per repetition.  bfloat16 leaves
+(numpy has no bfloat16; the reference hands over ``ml_dtypes`` arrays)
+cross as their 16-bit patterns and are viewed back as ``torch.bfloat16``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.lm import LM, pattern_unit
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)                      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _load(pdict, src: dict, device, rep=None) -> None:
+    """Copy ``src[name]`` (its ``rep``-th slice when stacked) into each
+    parameter of ``pdict``, checking shape and dtype."""
+    for name, p in pdict.items():
+        a = src[name] if rep is None else np.asarray(src[name])[rep]
+        t = _tensor(a, device)
+        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+            raise ValueError(f"parameter {name}: got {t.dtype} "
+                             f"{tuple(t.shape)}, want {p.dtype} "
+                             f"{tuple(p.shape)}")
+        p.copy_(t)
+
+
+def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> LM:
+    """The port's :class:`LM` holding the reference's parameters."""
+    dev = resolve_device(device)
+    params = LM(cfg, dev)
+    _load(params.embed, np_params["embed"], dev)
+    _load(params.final_norm, np_params["final_norm"], dev)
+    unit, reps, tail = pattern_unit(cfg)
+    for i in range(len(params.unit)):
+        src = np_params["unit"][i]
+        for r in range(reps):
+            block = params.unit[i][r]
+            for part in ("norm1", "attn", "norm2", "ffn"):
+                _load(getattr(block, part), src[part], dev, rep=r)
+    for i, block in enumerate(params.tail):
+        for part in ("norm1", "attn", "norm2", "ffn"):
+            _load(getattr(block, part), np_params["tail"][i][part], dev)
+    return params

@@ -1,0 +1,381 @@
+"""Paged KV-cache storage for the serving engine (port of
+``repro.fabric.paged_kv``: the shared physical page pool and its burst
+admission).
+
+Every full-attention leaf is one ``[reps, n_pages, page_size, Hkv, D]``
+physical region; a per-slot logical→physical table (:class:`PagePool`,
+``int32 [n_slots, pages_per_slot]``, ``-1`` = unmapped) indirects each
+slot's time axis into it.  Pages come from a free list at admission and
+decode growth and return to it at retirement.
+
+Admission rides the fabric: :meth:`PagedKVCache.admit_wave` installs a
+wave of prompts through one write-burst flush.  Under the fused-gather
+contract each paged leaf takes the whole wave as one scatter-indexed write
+stream that lands every prompt frame at its physical row, in place
+(:meth:`PagedKVCache._pool_install_fused`); otherwise dense ``prefill/*``
+write streams go through the network and their output is copied into the
+mapped pages (:meth:`PagedKVCache._pool_install`).  The per-leaf splice
+of slots whose extents miss the network geometry, and swap, are ported in
+later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.fabric.fabric import pm_to_banked
+from repro_torch.fabric.scheduler import (FRAME_SENTINEL as _SENTINEL,
+                                          BurstScheduler, SchedulerStats)
+
+_SWAP_TODO = ("page swap is ported in a later slice (ROADMAP §1 item 3: "
+              "swap_out/swap_in over swap/* streams)")
+_SPLICE_TODO = ("the per-leaf splice admission (slots off the write "
+                "network's geometry) is ported in a later slice (ROADMAP §1 "
+                "item 2)")
+
+
+@dataclasses.dataclass
+class PageTable:
+    """Per-slot logical page accounting: ``used[s]`` pages hold valid tokens."""
+
+    page_size: int
+    pages_per_slot: int
+    n_slots: int
+
+    def __post_init__(self):
+        self.used = np.zeros((self.n_slots,), np.int32)
+
+    def pages_for(self, n_tokens: int) -> int:
+        return min(-(-n_tokens // self.page_size), self.pages_per_slot)
+
+    def map(self, slot: int, n_tokens: int) -> int:
+        self.used[slot] = self.pages_for(n_tokens)
+        return int(self.used[slot])
+
+    def extend(self, slot: int, pos: int) -> None:
+        """Decode grew the sequence to ``pos`` — map pages lazily."""
+        self.used[slot] = max(self.used[slot], self.pages_for(pos + 1))
+
+    def free(self, slot: int) -> None:
+        self.used[slot] = 0
+
+
+class PagePool:
+    """Shared physical page frames + the per-slot logical→physical table.
+
+    ``table[s, p]`` is the physical page backing slot ``s``'s logical page
+    ``p`` (``-1`` = unmapped).  Allocation pops the free list (low page ids
+    first); retirement pushes a slot's pages back.  The sharded allocator
+    of the reference is a later slice, so there is one free stack."""
+
+    def __init__(self, page_size: int, n_pages: int, pages_per_slot: int,
+                 n_slots: int):
+        if page_size < 1 or n_pages < 1:
+            raise ValueError(f"bad pool geometry page_size={page_size} "
+                             f"n_pages={n_pages}")
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.pages_per_slot = pages_per_slot
+        self.n_slots = n_slots
+        self.table = np.full((n_slots, pages_per_slot), -1, np.int32)
+        self._free: List[int] = list(range(n_pages - 1, -1, -1))
+        self.pages_allocated = 0
+        self.pages_reclaimed = 0
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.n_pages - self.free_pages
+
+    def mapped(self, slot: int) -> int:
+        return int((self.table[slot] >= 0).sum())
+
+    def ensure(self, slot: int, n_logical: int) -> List[Tuple[int, int]]:
+        """Map logical pages ``[0, n_logical)`` of ``slot``; returns the
+        newly mapped ``(logical, physical)`` pairs.  Raises on exhaustion."""
+        n_logical = min(n_logical, self.pages_per_slot)
+        new = []
+        for p in range(n_logical):
+            if self.table[slot, p] < 0:
+                if not self._free:
+                    raise RuntimeError(
+                        f"page pool exhausted: slot {slot} needs logical page "
+                        f"{p} but all {self.n_pages} physical pages are "
+                        f"mapped — size the pool for the live footprint or "
+                        f"admit fewer sequences")
+                phys = self._free.pop()
+                self.table[slot, p] = phys
+                self.pages_allocated += 1
+                new.append((p, phys))
+        return new
+
+    def release(self, slot: int) -> int:
+        """Return every page mapped by ``slot`` to the free stack (reversed
+        table order, so the earliest-allocated page tops the stack)."""
+        phys = self.table[slot][self.table[slot] >= 0]
+        for p in phys[::-1]:
+            self._free.append(int(p))
+        self.table[slot] = -1
+        self.pages_reclaimed += len(phys)
+        return len(phys)
+
+    def check(self) -> None:
+        """Free-list conservation: every physical page is exactly once in
+        the free list or the table, and the lifetime counters balance."""
+        mapped = self.table[self.table >= 0].tolist()
+        if len(mapped) != len(set(mapped)):
+            raise ValueError(f"double-mapped physical pages: {sorted(mapped)}")
+        if sorted(mapped + self._free) != list(range(self.n_pages)):
+            raise ValueError(
+                f"page leak: mapped={sorted(mapped)} free={sorted(self._free)}"
+                f" != range({self.n_pages})")
+        if self.pages_allocated - self.pages_reclaimed != len(mapped):
+            raise ValueError(
+                f"counter drift: allocated={self.pages_allocated} "
+                f"reclaimed={self.pages_reclaimed} in_use={len(mapped)}")
+
+
+class PagedKVCache:
+    """The batched decode-cache tree with paged admission and shared-pool
+    physical storage.
+
+    ``caches`` is what ``api.init_cache(..., pool_pages=...)`` built:
+    ``{"unit": [{"k", "v"}...], "tail": [...]}`` with pool leaves
+    ``[reps, n_pages, page_size, Hkv, D]`` for the ``paged_entries``.  The
+    wrapper keeps that structure; admission writes into it in place.  Every
+    leaf of the attention-only models this slice serves is paged; the
+    splice of unpaged leaves (ring windows, recurrent state) comes with
+    the families that have them."""
+
+    def __init__(self, caches, max_slots: int, t_max: int, page_size: int,
+                 pool_pages: int = 0, paged_entries=(), fabric=None,
+                 fused_gather: bool = False):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if not pool_pages:
+            raise NotImplementedError(
+                "the dense per-slot KV reservation is ported in a later "
+                "slice (ROADMAP §1 item 2); pass pool_pages > 0")
+        self.fused_gather = fused_gather
+        self.caches = caches
+        self.max_slots = max_slots
+        self.t_max = t_max
+        self.table = PageTable(page_size=page_size,
+                               pages_per_slot=-(-t_max // page_size),
+                               n_slots=max_slots)
+        self.pool = PagePool(page_size, pool_pages,
+                             self.table.pages_per_slot, max_slots)
+        self.paged_entries = tuple(paged_entries)
+        self.fabric = fabric
+        self.tokens_moved = 0
+        self.tokens_moved_dense = 0
+        self.prefill_bursts = 0
+        self._dirty = np.full((max_slots,), -1, np.int64)
+
+    # -- geometry / accounting -------------------------------------------------
+    def page_table_device(self, device) -> torch.Tensor:
+        """The logical→physical table as a device operand
+        (``int32 [max_slots, pages_per_slot]``)."""
+        return torch.from_numpy(self.pool.table.copy()).to(device)
+
+    def _count_refill(self, slot: int, span: int) -> None:
+        """Admission accounting: timesteps installed, against what a dense
+        per-slot splice would copy (``t_max`` on a slot's first fill, the
+        prompt or the prior occupant's dirty extent on reuse)."""
+        self.tokens_moved += span
+        prior = int(self._dirty[slot])
+        self.tokens_moved_dense += self.t_max if prior < 0 else max(span, prior)
+        self._dirty[slot] = span
+
+    # -- admission -------------------------------------------------------------
+    def admit_wave(self, entries: Sequence[Tuple[int, object, int]],
+                   stats: Optional[SchedulerStats] = None) -> None:
+        """Install a wave of admitted prompts, ``[(slot, req_cache,
+        n_tokens), ...]``, through one write-burst flush."""
+        plans = []
+        for slot, req_cache, n_tokens in entries:
+            inst_pages = self.table.pages_for(n_tokens)
+            span = min(inst_pages * self.table.page_size, self.t_max)
+            self._count_refill(slot, span)
+            self.table.map(slot, n_tokens)
+            self.pool.ensure(slot, self.table.pages_for(n_tokens + 1))
+            plans.append((slot, req_cache, span))
+        self._pool_install(plans, stats=stats)
+
+    # -- decode-time bookkeeping ----------------------------------------------
+    def update(self, new_caches) -> None:
+        """Adopt the cache tree returned by the decode step."""
+        self.caches = new_caches
+
+    def extend(self, slot: int, pos: int) -> None:
+        self.table.extend(slot, pos)
+        self._dirty[slot] = max(int(self._dirty[slot]), pos)
+        self.pool.ensure(slot, self.table.pages_for(pos + 1))
+
+    def free(self, slot: int) -> None:
+        """Retire the slot: its physical pages return to the free list."""
+        self.table.free(slot)
+        self.pool.release(slot)
+
+    def swap_out(self, slot: int, stats=None):
+        raise NotImplementedError(_SWAP_TODO)
+
+    def swap_in(self, slot: int, record, stats=None):
+        raise NotImplementedError(_SWAP_TODO)
+
+    # -- install paths ---------------------------------------------------------
+    def _req_frames(self, req_cache, kind: str, i: int, name: str,
+                    span: int) -> torch.Tensor:
+        """A request's first ``span`` timesteps of one paged leaf, as
+        line-major frames ``[lead..., span, Hkv, D]``."""
+        leaf = req_cache[kind][i][name]        # [lead..., 1, t_alloc, Hkv, D]
+        return leaf[..., 0, :span, :, :]
+
+    def _burst_eligible(self, req_cache, span: int) -> bool:
+        """Whether a slot's page extents fit the write network: a bankable
+        fabric on the port-per-KV-head geometry, and every paged leaf's line
+        count a multiple of N."""
+        if self.fabric is None or not self.fabric.banks_kv:
+            return False
+        n = self.fabric.n_ports
+        for kind, i in self.paged_entries:
+            leaf = req_cache[kind][i]["k"]
+            lead = int(np.prod(leaf.shape[:-4])) if leaf.ndim > 4 else 1
+            if leaf.shape[-2] != n or (lead * span) % n:
+                return False
+        return True
+
+    def _fused_eligible(self) -> bool:
+        """Whether the fused-gather install can carry this pool's admission
+        (a bankable fabric on the port-per-KV-head geometry)."""
+        if self.fabric is None or not self.fabric.banks_kv:
+            return False
+        n = self.fabric.n_ports
+        return all(self.caches[kind][i]["k"].shape[-2] == n
+                   for kind, i in self.paged_entries)
+
+    def _pool_install_fused(self, plans, stats=None) -> None:
+        """Fused-contract install: each paged leaf takes the whole wave as
+        ONE sparse-extent write stream — the write network reassembles every
+        admitted prompt's frames and the scatter lands each at its physical
+        page row, in place in the pool leaf.  One flush per wave."""
+        n = self.fabric.n_ports
+        ps = self.table.page_size
+        staged: Dict[Tuple[str, int, str], Tuple[list, list]] = {}
+        for slot, req_cache, span in plans:
+            if span == 0:
+                continue
+            row = self.pool.table[slot]
+            t = np.arange(span)
+            pf = (row[t // ps].astype(np.int64) * ps + t % ps).astype(np.int32)
+            for kind, i in self.paged_entries:
+                pool_leaf = self.caches[kind][i]["k"]
+                frames_n = pool_leaf.shape[-4] * pool_leaf.shape[-3]
+                reps = int(np.prod(pool_leaf.shape[:-4])) \
+                    if pool_leaf.ndim > 4 else 1
+                idx = (np.arange(reps, dtype=np.int64)[:, None] * frames_n
+                       + pf[None, :]).reshape(-1).astype(np.int32)
+                for name in ("k", "v"):
+                    fr = self._req_frames(req_cache, kind, i, name, span)
+                    lines = fr.reshape(-1, n, fr.shape[-1])
+                    lns, idxs = staged.setdefault((kind, i, name), ([], []))
+                    lns.append(lines)
+                    idxs.append(idx)
+        if staged:
+            sched = BurstScheduler(self.fabric, stats=stats)
+            for (kind, i, name), (lns, idxs) in staged.items():
+                lines = lns[0] if len(lns) == 1 else torch.cat(lns, dim=0)
+                idx = np.concatenate(idxs)
+                pad = (-lines.shape[0]) % n
+                if pad:
+                    lines = torch.cat([lines, lines.new_zeros(
+                        (pad,) + tuple(lines.shape[1:]))], dim=0)
+                    idx = np.concatenate(
+                        [idx, np.full((pad,), _SENTINEL, np.int32)])
+                pool_leaf = self.caches[kind][i][name]
+                sched.enqueue_write(
+                    f"prefill/{kind}{i}/{name}",
+                    _lines_to_banked(lines, n),
+                    scatter=torch.from_numpy(idx).to(pool_leaf.device),
+                    into=_flat_frames_lines(pool_leaf))
+            # the scatter lands in place: the pool leaves are already updated
+            sched.flush()
+            self.prefill_bursts += 1
+            if stats is not None:
+                stats.prefill_bursts += 1
+
+    def _pool_install(self, plans, stats=None) -> None:
+        """Install a wave into the shared pool: the fused contract's sparse
+        write (:meth:`_pool_install_fused`), or every slot's extents through
+        one dense write-network flush, copied into the mapped pages."""
+        if self.fused_gather and self._fused_eligible():
+            self._pool_install_fused(plans, stats=stats)
+            return
+        if not all(span == 0 or self._burst_eligible(rc, span)
+                   for _, rc, span in plans):
+            raise NotImplementedError(_SPLICE_TODO)
+        n = self.fabric.n_ports
+        staged = []
+        sched = BurstScheduler(self.fabric, stats=stats)
+        for slot, req_cache, span in plans:
+            if span == 0:
+                continue
+            for kind, i in self.paged_entries:
+                for name in ("k", "v"):
+                    frames = self._req_frames(req_cache, kind, i, name, span)
+                    lines = frames.reshape(-1, n, frames.shape[-1])
+                    tag = f"prefill/{slot}/{kind}{i}/{name}"
+                    sched.enqueue_write(tag, _lines_to_banked(lines, n))
+                    staged.append((slot, kind, i, name, tag, frames.shape,
+                                   span))
+        if not staged:
+            return
+        out = sched.flush()
+        self.prefill_bursts += 1
+        if stats is not None:
+            stats.prefill_bursts += 1
+        for slot, kind, i, name, tag, shape, span in staged:
+            _install_pool_leaf(self.caches[kind][i][name],
+                               out[tag].reshape(shape),
+                               self.pool.table[slot], span,
+                               self.table.page_size)
+
+
+def _lines_to_banked(lines: torch.Tensor, n: int) -> torch.Tensor:
+    """Line-major frames ``[L, N, D]`` → the banked ``[G, N, N, D]`` buffer
+    whose write-network image is exactly ``lines``."""
+    return pm_to_banked(lines.transpose(0, 1), n)
+
+
+def _flat_frames_lines(pool_leaf: torch.Tensor) -> torch.Tensor:
+    """Pool leaf ``[lead..., n_pages, page_size, Hkv, D]`` → its flattened
+    line stream ``[lead*F, Hkv, D]``, a view of the leaf (the sparse
+    scatter's target; the same line order the decode step addresses)."""
+    return pool_leaf.reshape((-1,) + tuple(pool_leaf.shape[-2:]))
+
+
+def _install_pool_leaf(pool_leaf: torch.Tensor, frames: torch.Tensor,
+                       table_row: np.ndarray, span: int,
+                       page_size: int) -> None:
+    """Copy a prompt's ``span`` line-major frames into the physical pages
+    ``table_row`` maps, in place (full pages, then the partial tail page)."""
+    page_axis = pool_leaf.ndim - 4
+    n_full, tail = divmod(span, page_size)
+    n_pages_used = n_full + (1 if tail else 0)
+    phys = [int(table_row[p]) for p in range(n_pages_used)]
+    lead = tuple(frames.shape[:-3])
+    if n_full:
+        data = frames[..., : n_full * page_size, :, :].reshape(
+            lead + (n_full, page_size) + tuple(frames.shape[-2:]))
+        pool_leaf.index_copy_(page_axis, torch.tensor(
+            phys[:n_full], device=pool_leaf.device), data)
+    if tail:
+        pool_leaf.select(page_axis, phys[-1]).narrow(
+            page_axis, 0, tail).copy_(frames[..., n_full * page_size:, :, :])

@@ -1,0 +1,67 @@
+"""Dispatch for the burst kernels (port of ``repro.kernels.ops``, the three
+ops on the serving path).
+
+With kernels enabled (the default) each op calls its kernel wrapper in
+:mod:`repro_torch.kernels.medusa_transpose`, which launches the CUDA kernel
+for a CUDA tensor, takes the plain version for a CPU tensor, and raises on
+anything else.  ``use_kernels(False)`` routes every op to the unrolled
+oracles instead, on any device — the kernels-off arm, a caller's explicit
+choice, never a fallback.  The switch is this function only; no environment
+variable reads it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.transpose import (read_network_oracle,
+                                        write_network_oracle)
+from repro_torch.kernels import medusa_transpose as mt
+
+_USE_KERNELS = True
+
+
+def use_kernels(enabled: bool) -> None:
+    """Route the burst ops to the kernels (True) or the oracles (False)."""
+    global _USE_KERNELS
+    _USE_KERNELS = bool(enabled)
+
+
+def kernels_enabled() -> bool:
+    return _USE_KERNELS
+
+
+def burst_read(tile: torch.Tensor, n_ports: int) -> torch.Tensor:
+    """Packed read burst ``[N, N, W]`` → banked ``[N, N, W]`` in one
+    launch."""
+    if not _USE_KERNELS:
+        return read_network_oracle(tile, n_ports)[0]
+    return mt.burst_network_tiles(tile, n_ports)
+
+
+def burst_write(banked: torch.Tensor, n_ports: int) -> torch.Tensor:
+    """Packed write burst: banked ``[N, N, W]`` → line tile ``[N, N, W]``
+    (the same involution in the write direction)."""
+    if not _USE_KERNELS:
+        return write_network_oracle(banked[None], n_ports)
+    return mt.burst_network_tiles(banked, n_ports)
+
+
+def burst_gather_read(lines: torch.Tensor, idx: torch.Tensor,
+                      n_ports: int) -> torch.Tensor:
+    """Fused page-table gather + read network: pool lines ``[L, N, W]`` and
+    frame indices ``idx [K]`` (sentinels read zero frames) → banked
+    ``[K//N, N, N, W]`` of exactly the addressed frames."""
+    if not _USE_KERNELS:
+        return mt.gather_burst_plain(lines, idx, n_ports)
+    return mt.gather_burst_network_tiles(lines, idx, n_ports)
+
+
+def burst_scatter_write(banked: torch.Tensor, idx: torch.Tensor,
+                        into: torch.Tensor, n_ports: int) -> torch.Tensor:
+    """Fused write network + page-table scatter: banked ``[G, N, N, W]`` →
+    frames landed in place at rows ``idx [G*N]`` of ``into [L, N, W]``
+    (sentinels drop; untouched rows keep their frames)."""
+    if not _USE_KERNELS:
+        return mt.scatter_burst_plain(banked, idx, into, n_ports)
+    return mt.scatter_burst_network_tiles(banked, idx, into, n_ports)

@@ -1,0 +1,6 @@
+"""Models of the port: the dense decoder-only LM on the serving path."""
+
+from repro_torch.models.api import (decode_fn, init_cache, init_params,
+                                    prefill_fn)
+
+__all__ = ["init_params", "prefill_fn", "decode_fn", "init_cache"]

@@ -1,0 +1,44 @@
+"""Unified model API (port of ``repro.models.api`` for the decoder-only
+serving path): ``init_params``, ``prefill_fn``, ``init_cache``,
+``decode_fn``.  Entry points run on ``cuda`` unless ``device="cpu"`` is
+passed; they raise when no CUDA device is present."""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> lm.LM:
+    """Random parameters from a seeded generator on ``device``."""
+    return lm.init_params(cfg, seed=seed, device=device)
+
+
+def _kv_chunk_for(seq: int) -> int:
+    return 1024 if seq > 2048 else 0
+
+
+def prefill_fn(params: lm.LM, batch: dict, cfg: ModelConfig, t_max: int):
+    """Prefill ``batch["tokens"] [B, S]`` → ``(logits [B, 1, V], caches)``
+    with line-major caches of depth ``t_max``."""
+    tokens = batch["tokens"]
+    return lm.prefill(params, tokens, cfg, t_max,
+                      kv_chunk=_kv_chunk_for(tokens.shape[1]))
+
+
+def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
+               page_size: int = 0, device=None):
+    """Decode-cache tree; ``pool_pages > 0`` backs the full-attention leaves
+    with a shared physical page pool."""
+    return lm.init_cache(cfg, batch, t_max, pool_pages=pool_pages,
+                         page_size=page_size, device=device)
+
+
+def decode_fn(params: lm.LM, token, caches, pos, cfg: ModelConfig,
+              sched=None, page_table=None, page_size: int = 0,
+              t_depth: int = 0, live_plan=None):
+    """One decode step through the burst scheduler ``sched`` (see
+    :func:`repro_torch.models.lm.decode_step`)."""
+    return lm.decode_step(params, token, caches, pos, cfg, sched=sched,
+                          page_table=page_table, page_size=page_size,
+                          t_depth=t_depth, live_plan=live_plan)

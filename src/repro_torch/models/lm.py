@@ -1,0 +1,398 @@
+"""Decoder-only LM (port of ``repro.models.lm`` for full-attention
+blocks): parameters, caches, prefill and the burst-scheduled decode step.
+
+Parameters are an :class:`LM` module: one :class:`Block` per layer
+(``LM.unit[i][r]`` is pattern position ``i`` of repetition ``r``, the
+reference's stacked ``unit`` axis split into modules; ``LM.tail[i]`` the
+remainder layers).  Weights keep the reference's ``[d_in, d_out]``
+orientation (``x @ w``).  The layer scan is a Python loop.
+
+Caches keep the reference's tree layout, stacked over layers:
+``{"unit": [{"k": [reps, ...], "v": ...}], "tail": [...]}`` — a paged pool
+leaf is ``[reps, n_pages, page_size, Hkv, D]`` — so the scheduler's
+streams, index tiling and counters match the reference one for one.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common as cm
+
+_OTHER_FAMILIES = ("block types other than full attention ('A'), MoE and "
+                   "the other families are ported in later slices (ROADMAP "
+                   "§1 items 1, 2, 6, 7)")
+
+
+def pattern_unit(cfg: ModelConfig):
+    pat = cfg.block_pattern
+    reps = cfg.n_layers // len(pat)
+    tail = pat[: cfg.n_layers - reps * len(pat)]
+    return pat, reps, tail
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.moe is not None or cfg.family in ("audio", "ssm", "hybrid") \
+            or cfg.n_patches or cfg.encoder_layers \
+            or any(t != "A" for t in cfg.layer_types()):
+        raise NotImplementedError(_OTHER_FAMILIES)
+    if cfg.spec_heads or cfg.serve_fsdp:
+        raise NotImplementedError(
+            "draft heads and serve_fsdp weight streaming are ported in a "
+            "later slice (ROADMAP §1 item 2)")
+
+
+# ----------------------------------------------------------------------------
+# parameters
+# ----------------------------------------------------------------------------
+
+def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        name: nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                           requires_grad=False)
+        for name, shape in shapes.items()})
+
+
+def _norm(cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
+    shapes = {"scale": (cfg.d_model,)}
+    if cfg.norm != "rms":
+        shapes["bias"] = (cfg.d_model,)
+    return _params(shapes, dtype, device)
+
+
+class Block(nn.Module):
+    """One full-attention decoder layer: pre-norm attention + MLP."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        hd, d = cfg.resolved_head_dim, cfg.d_model
+        self.norm1 = _norm(cfg, dtype, device)
+        self.attn = _params({"wq": (d, cfg.n_heads * hd),
+                             "wk": (d, cfg.n_kv_heads * hd),
+                             "wv": (d, cfg.n_kv_heads * hd),
+                             "wo": (cfg.n_heads * hd, d)}, dtype, device)
+        self.norm2 = _norm(cfg, dtype, device)
+        ffn = {"w_up": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
+        if cfg.mlp in ("swiglu", "geglu"):
+            ffn["w_gate"] = (d, cfg.d_ff)
+        self.ffn = _params(ffn, dtype, device)
+
+
+class LM(nn.Module):
+    """The decoder's parameters (uninitialised; see :func:`init_params` and
+    :func:`repro_torch.convert.params_from_jax`)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        _check_supported(cfg)
+        dtype = cfg.param_dtype
+        unit, reps, tail = pattern_unit(cfg)
+        embed = {"table": (cm.pad_vocab(cfg.vocab_size), cfg.d_model)}
+        if not cfg.tie_embeddings:
+            embed["head"] = (cfg.d_model, cm.pad_vocab(cfg.vocab_size))
+        self.embed = _params(embed, dtype, device)
+        self.unit = nn.ModuleList(
+            nn.ModuleList(Block(cfg, dtype, device) for _ in range(reps))
+            for _ in (unit if reps > 0 else ""))
+        self.tail = nn.ModuleList(Block(cfg, dtype, device) for _ in tail)
+        self.final_norm = _norm(cfg, dtype, device)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
+    """Random parameters on ``device`` from a seeded ``torch.Generator``:
+    truncated normals scaled like the reference (``1/sqrt(d_in)`` for
+    projections, ``1/sqrt(d_model)`` for the embedding), norms at their
+    identity.  The numbers are not the reference's ``jax.random`` draws."""
+    dev = resolve_device(device)
+    params = LM(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for name, p in params.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("scale", "bias"):
+            p.fill_(1.0 if (leaf == "scale" and cfg.norm != "rms") else 0.0)
+            continue
+        fan_in = p.shape[1] if leaf == "table" else p.shape[0]
+        draw = torch.empty(p.shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        p.copy_(draw * (1.0 / math.sqrt(fan_in)))
+    return params
+
+
+def _layers(params: LM, cfg: ModelConfig):
+    """``(kind, index, rep, block)`` for every layer in execution order."""
+    unit, reps, tail = pattern_unit(cfg)
+    for r in range(reps):
+        for i in range(len(unit)):
+            yield "unit", i, r, params.unit[i][r]
+    for i in range(len(tail)):
+        yield "tail", i, None, params.tail[i]
+
+
+# ----------------------------------------------------------------------------
+# caches
+# ----------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
+               page_size: int = 0, device=None) -> dict:
+    """The batched decode-cache tree.  With ``pool_pages > 0`` every
+    full-attention leaf is a shared physical page pool ``[pool_pages,
+    page_size, Hkv, D]`` (stacked over the unit's repetitions) instead of a
+    dense ``[batch, t_max]`` reservation."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = cfg.param_dtype
+    hd = cfg.resolved_head_dim
+    unit, reps, tail = pattern_unit(cfg)
+    shape = ((pool_pages, page_size, cfg.n_kv_heads, hd) if pool_pages
+             else (batch, t_max, cfg.n_kv_heads, hd))
+
+    def leaf(lead):
+        return {name: torch.zeros(lead + shape, dtype=dtype, device=dev)
+                for name in ("k", "v")}
+
+    return {"unit": [leaf((reps,)) for _ in (unit if reps > 0 else "")],
+            "tail": [leaf(()) for _ in tail]}
+
+
+def paged_entries(cfg: ModelConfig):
+    """The ``(kind, index)`` cache entries the paged pool backs: every
+    full-attention layer's ``k``/``v``."""
+    unit, reps, tail = pattern_unit(cfg)
+    out = []
+    for kind, types in (("unit", unit if reps > 0 else ""), ("tail", tail)):
+        for i, t in enumerate(types):
+            if _full_attn(t, cfg):
+                out.append((kind, i))
+    return out
+
+
+def _full_attn(t: str, cfg: ModelConfig) -> bool:
+    return t in ("A", "L") and not (t == "L" and cfg.sliding_window)
+
+
+def _flat_frames(pool: torch.Tensor) -> torch.Tensor:
+    """Pool leaf ``[lead..., n_pages, page_size, Hkv, D]`` → flattened frame
+    axis ``[lead..., F, Hkv, D]``."""
+    return pool.reshape(tuple(pool.shape[:-4]) + (-1,)
+                        + tuple(pool.shape[-2:]))
+
+
+# ----------------------------------------------------------------------------
+# forward
+# ----------------------------------------------------------------------------
+
+def _block_apply(bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
+                 positions, pos=None, kv_chunk: int = 0, pm_cache=None):
+    """One ``A`` layer.  With ``pm_cache`` (decode) attention runs on the
+    layer's port-major cache from the step's read burst and updates it in
+    place; without, it attends over the current sequence (prefill) and
+    returns the new line-major K/V."""
+    h = cm.apply_norm(x, bp.norm1, cfg.norm)
+    if pm_cache is not None:
+        qpos = pos[None] if pos.ndim == 0 else pos[:, None]
+        h, new_kv = cm.attention_apply_banked(
+            bp.attn, h, cfg, positions=qpos, layer_kind="A",
+            cache={"k_pm": pm_cache["k_pm"], "v_pm": pm_cache["v_pm"],
+                   "pos": pos})
+    else:
+        h, new_kv = cm.attention_apply(bp.attn, h, cfg, positions=positions,
+                                       layer_kind="A", kv_chunk=kv_chunk)
+    x = x + h
+    h = cm.apply_norm(x, bp.norm2, cfg.norm)
+    return x + cm.mlp_apply(bp.ffn, h, cfg.mlp), new_kv
+
+
+def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
+                page_table=None, page_size: int = 0, t_depth: int = 0,
+                live_plan=None):
+    """One serving decode step: ``token [B, 1]`` + caches at ``pos`` →
+    ``(logits [B, 1, V], caches)``, through the burst scheduler ``sched``.
+
+    Every full-attention leaf's port-major conversion is one shared read
+    burst at the top of the step; attention runs (and writes the new
+    token's K/V) in port-major space; one write burst restores line-major
+    caches at the bottom.  With ``page_table`` the leaves are shared page
+    pools; with ``live_plan`` (the operands of
+    :func:`repro_torch.models.common.page_live_plan`, as tensors) the pool
+    gather is fused into the bursts (sparse-extent streams — the ``live``
+    form), otherwise the burst banks the whole pool and the gather runs
+    after it (the ``phys`` form).  On the fused form the write burst
+    scatters into the pool leaves in place, so the returned caches share
+    storage with ``caches``."""
+    if sched is None:
+        raise NotImplementedError(
+            "the per-layer decode path (cached_attention through "
+            "Fabric.kv_port_major) is ported with the next slice (ROADMAP "
+            "§2 kernel 4); pass a BurstScheduler")
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
+    positions = pos[None] if pos.ndim == 0 else pos[:, None]
+    phys = (None if page_table is None
+            else cm.page_gather_indices(page_table, page_size, t_depth))
+    plan = _burst_plan(cfg, caches)
+    if plan is None:
+        raise NotImplementedError(
+            "off-geometry fabrics decode through the per-layer path, ported "
+            "with the next slice")
+    live = live_plan if phys is not None else None
+    return _decode_step_scheduled(params, token, caches, pos, positions, cfg,
+                                  sched, plan, phys=phys, live=live)
+
+
+def _burst_plan(cfg: ModelConfig, caches):
+    """The cache entries the scheduled step routes through the shared
+    burst, or None when the fabric is off the port-per-KV-head geometry."""
+    fab = cfg.resolved_fabric
+    n = fab.n_ports
+    if fab.impl == "fused":
+        return None
+    if n != cfg.n_kv_heads or fab.lane_width != cfg.resolved_head_dim:
+        return None
+    unit, reps, tail = pattern_unit(cfg)
+    plan = []
+    for kind, types in (("unit", unit if reps > 0 else ""), ("tail", tail)):
+        for i, t in enumerate(types):
+            if not _full_attn(t, cfg):
+                continue
+            leaf = caches[kind][i]["k"]
+            lines = math.prod(leaf.shape[:-2])
+            if leaf.shape[-2] != n or lines % n:
+                return None
+            plan.append((kind, i))
+    return plan or None
+
+
+def _decode_step_scheduled(params: LM, token, caches, pos, positions,
+                           cfg: ModelConfig, sched, plan, phys=None,
+                           live=None):
+    """The burst-scheduled decode step (see :func:`decode_step`)."""
+    if live is not None:
+        live_idx, expand, dense_pos = live
+
+    def leaf_gather_idx(leaf):
+        """The step's live frames tiled over the leaf's leading layer axis."""
+        flat = _flat_frames(leaf)
+        if flat.ndim == 3:                       # tail leaf: [F, N, D]
+            return live_idx
+        return cm.pool_rep_indices(live_idx, math.prod(flat.shape[:-3]),
+                                   flat.shape[-3])
+
+    # -- burst 1: KV banking -------------------------------------------------
+    for kind, i in plan:
+        for leaf_name in ("k", "v"):
+            leaf = caches[kind][i][leaf_name]
+            if phys is not None:
+                sched.enqueue_read(
+                    f"{kind}{i}/{leaf_name}",
+                    cm.kv_leaf_to_lines(_flat_frames(leaf)),
+                    gather=leaf_gather_idx(leaf) if live is not None
+                    else None)
+                continue
+            sched.enqueue_read(f"{kind}{i}/{leaf_name}",
+                               cm.kv_leaf_to_lines(leaf))
+    sched.issue()
+    moved = sched.commit()
+
+    pm = {"unit": [None] * len(caches["unit"]),
+          "tail": [None] * len(caches["tail"])}
+    pm_pools = {}
+    for kind, i in plan:
+        if phys is None:
+            lead = caches[kind][i]["k"].shape[:-2]
+            pm[kind][i] = {
+                leaf_name + "_pm": cm.banked_to_port_major(
+                    moved[f"{kind}{i}/{leaf_name}"], lead)
+                for leaf_name in ("k", "v")}
+            continue
+        flat_shape = _flat_frames(caches[kind][i]["k"]).shape
+        if live is not None:
+            lead = tuple(flat_shape[:-3]) + (live_idx.shape[0],)
+        else:
+            lead = tuple(flat_shape[:-2])
+        entry = {}
+        for leaf_name in ("k", "v"):
+            # [lead?, Hkv, F|L_live, D]: each port's frame stream
+            pool_pm = cm.banked_to_port_major(
+                moved[f"{kind}{i}/{leaf_name}"], lead)
+            if live is None:
+                pm_pools[(kind, i, leaf_name)] = pool_pm
+            # fused: expand relabels the compact live frames to the dense
+            # [B, T] view; fallback: the full logical→physical gather
+            dense_pm = cm.gather_pool_frames(
+                pool_pm, expand if live is not None else phys,
+                pool_pm.ndim - 2)
+            # [lead?, Hkv, B, T, D] → [lead?, B, Hkv, T, D]
+            entry[leaf_name + "_pm"] = dense_pm.movedim(-3, -4)
+        pm[kind][i] = entry
+
+    x = cm.embed_apply(params.embed, token)
+    for kind, i, r, block in _layers(params, cfg):
+        entry = pm[kind][i]
+        layer_pm = ({name: t[r] for name, t in entry.items()}
+                    if r is not None else entry)
+        x, _ = _block_apply(block, x, cfg, positions=positions, pos=pos,
+                            pm_cache=layer_pm)
+
+    # -- burst 2: updated port-major caches → line-major --------------------
+    for kind, i in plan:
+        for leaf_name in ("k", "v"):
+            new_pm = pm[kind][i][leaf_name + "_pm"]
+            leaf = caches[kind][i][leaf_name]
+            if phys is not None and live is not None:
+                # compact the updated dense view back to live frames and
+                # scatter them into the pool through the sparse write burst
+                upd = new_pm.movedim(-4, -3)           # [lead?, Hkv, B, T, D]
+                flat = upd.reshape(tuple(upd.shape[:-3])
+                                   + (upd.shape[-3] * upd.shape[-2],)
+                                   + tuple(upd.shape[-1:]))
+                compact = cm.gather_pool_frames(flat, dense_pos,
+                                                flat.ndim - 2)
+                sched.enqueue_write(
+                    f"{kind}{i}/{leaf_name}",
+                    cm.port_major_to_banked(compact),
+                    scatter=leaf_gather_idx(leaf),
+                    into=cm.kv_leaf_to_lines(_flat_frames(leaf)))
+                continue
+            if phys is not None:
+                # scatter the updated per-slot frames back into the
+                # port-major pool before it returns through the write burst
+                pool_pm = pm_pools[(kind, i, leaf_name)]
+                new_pm = cm.scatter_pool_frames(
+                    pool_pm, new_pm.movedim(-4, -3), phys, pool_pm.ndim - 2)
+            sched.enqueue_write(f"{kind}{i}/{leaf_name}",
+                                cm.port_major_to_banked(new_pm))
+    sched.issue()
+    lines_back = sched.commit()
+    new_caches = {"unit": list(caches["unit"]), "tail": list(caches["tail"])}
+    for kind, i in plan:
+        shape = caches[kind][i]["k"].shape
+        new_caches[kind][i] = {
+            leaf_name: lines_back[f"{kind}{i}/{leaf_name}"].reshape(shape)
+            for leaf_name in ("k", "v")}
+
+    x = cm.apply_norm(x, params.final_norm, cfg.norm)
+    return cm.logits_apply(params.embed, x, cfg), new_caches
+
+
+def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig, t_max: int,
+            kv_chunk: int = 0):
+    """Prefill: the forward pass that also installs line-major KV caches
+    ``[reps, B, t_max, Hkv, D]``.  Returns ``(logits [B, 1, V], caches)``
+    with the logits of the last position."""
+    b, s = tokens.shape
+    caches = init_cache(cfg, b, t_max, device=tokens.device)
+    x = cm.embed_apply(params.embed, tokens)
+    positions = torch.arange(s, device=tokens.device)
+    for kind, i, r, block in _layers(params, cfg):
+        x, kv = _block_apply(block, x, cfg, positions=positions,
+                             kv_chunk=kv_chunk)
+        for name in ("k", "v"):
+            leaf = caches[kind][i][name]
+            (leaf[r] if r is not None else leaf)[:, :s] = kv[name]
+    x = cm.apply_norm(x, params.final_norm, cfg.norm)
+    return cm.logits_apply(params.embed, x[:, -1:], cfg), caches

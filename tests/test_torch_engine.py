@@ -1,0 +1,185 @@
+"""The port's ServingEngine against the reference's, step for step.
+
+stablelm smoke in float32 with the reference's parameters, two slots and
+five requests of varied prompt lengths (so slots retire and refill), on
+both engines in lockstep: the page tables agree after every step, the
+committed token streams are equal, and admission installs the same number
+of prefill bursts.  Tokens are compared exactly, so the test first checks
+that the reference run never sits on a near-tie (its smallest top-1/top-2
+logit margin exceeds 1e-3): float32 rounding differences between the two
+frameworks cannot flip an argmax that far apart.
+
+The reference runs with its kernels off here (its unrolled networks move
+the same bits as its Pallas kernels, and recompile faster per bucket);
+the port runs with its kernels on, i.e. the plain versions on the CPU.
+The kernels-on reference path is held against the port in
+``test_torch_model.py`` and ``test_torch_scheduler.py``.
+
+The port counts ``fabric_stats`` once per executed step; the reference's
+jitted step counts once per traced bucket, so engine-level counters are
+compared only where both count the same thing (prefill bursts) — the
+scheduler-level counters are compared field for field in
+``test_torch_scheduler.py``.
+
+Also here: the port's runtime imports no JAX and nothing of ``repro``.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import get_smoke as jget_smoke  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models import api as japi  # noqa: E402
+from repro.serving import Request as JRequest  # noqa: E402
+from repro.serving import ServingEngine as JEngine  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PROMPT_LENS = (5, 11, 3, 11, 5)
+GEN_LENS = (4, 3, 6, 2, 5)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread_and_kernels():
+    torch.set_num_threads(1)
+    was = jops.kernels_enabled()
+    jops.use_kernels(False)
+    yield
+    jops.use_kernels(was)
+
+
+def _margin(logits) -> float:
+    top2 = np.sort(np.asarray(logits, np.float64), axis=-1)[..., -2:]
+    return float((top2[..., 1] - top2[..., 0]).min())
+
+
+@pytest.mark.parametrize("fused", [
+    True,                   # fused decode, sparse-scatter admission
+    False])                 # gather-after-burst, dense-burst admission
+def test_engine_matches_reference_in_lockstep(fused, monkeypatch):
+    jcfg = dataclasses.replace(jget_smoke("stablelm-1.6b"), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
+    jparams = japi.init_params(jcfg, jax.random.PRNGKey(5))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, jcfg.vocab_size, (n,), dtype=np.int32)
+               for n in PROMPT_LENS]
+    kw = dict(max_slots=2, t_max=20, page_size=4, fused_gather=fused,
+              check_pool=True)
+    jeng = JEngine(jcfg, jparams, **kw)
+    teng = ServingEngine(tcfg, tparams, **kw)
+    jreqs = [JRequest(i, p, max_new_tokens=g)
+             for i, (p, g) in enumerate(zip(prompts, GEN_LENS))]
+    treqs = [Request(i, p, max_new_tokens=g)
+             for i, (p, g) in enumerate(zip(prompts, GEN_LENS))]
+    for jr, tr in zip(jreqs, treqs):
+        jeng.submit(jr)
+        teng.submit(tr)
+
+    # the reference's first tokens come from its prefill: their margins too
+    margins = []
+    prefill = japi.prefill_fn
+
+    def prefill_recording(*args, **kwargs):
+        logits, caches = prefill(*args, **kwargs)
+        margins.append(_margin(logits[:, -1]))
+        return logits, caches
+    monkeypatch.setattr(japi, "prefill_fn", prefill_recording)
+    # the slots that decoded in a step: live after it, or retired in it
+    freed = []
+    free = jeng.kv.free
+    jeng.kv.free = lambda slot: (freed.append(slot), free(slot))[1]
+    steps = 0
+    while not jeng.drained:
+        freed.clear()
+        assert jeng.step() == teng.step()
+        np.testing.assert_array_equal(teng.kv.pool.table, jeng.kv.pool.table)
+        np.testing.assert_array_equal(teng.pos, jeng.pos)
+        rows = sorted(set(freed) | {s for s in range(2)
+                                    if jeng.active[s] is not None})
+        if rows:
+            margins.append(_margin(np.asarray(jeng.last_logits)[rows]))
+        steps += 1
+        assert steps < 64
+    assert len(margins) > len(prompts) and min(margins) > 1e-3, margins
+    assert teng.drained
+    for jr, tr in zip(jreqs, treqs):
+        assert jr.done and tr.done
+        assert tr.generated == jr.generated, tr.rid
+    assert teng.kv.prefill_bursts == jeng.kv.prefill_bursts > 1
+    assert jeng.kv.prefill_splices == 0
+    assert (teng.fabric_stats.prefill_bursts
+            == jeng.fabric_stats.prefill_bursts)
+    assert teng.kv.pool.pages_allocated == jeng.kv.pool.pages_allocated
+    teng.kv.pool.check()
+
+
+def test_engine_refuses_paths_of_later_slices():
+    tcfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
+    from repro_torch.models import api
+    params = api.init_params(tcfg, seed=0, device="cpu")
+    for kw in (dict(spec_decode_k=2), dict(aging=3), dict(max_queue=4),
+               dict(paged_pool=False), dict(pool_shards=2),
+               dict(prefill_burst=False)):
+        with pytest.raises(NotImplementedError):
+            ServingEngine(tcfg, params, max_slots=2, t_max=16, **kw)
+    eng = ServingEngine(tcfg, params, max_slots=2, t_max=16)
+    with pytest.raises(NotImplementedError):
+        eng.submit(Request(0, np.zeros(3, np.int32), 2, deadline=4))
+    # a 1-token extent of 2 layers is 2 lines, off the N=4 write network:
+    # the reference splices it per leaf, a path of a later slice here
+    eng = ServingEngine(tcfg, params, max_slots=1, t_max=8, page_size=1,
+                        fused_gather=False)
+    eng.submit(Request(0, np.zeros(1, np.int32), 2))
+    with pytest.raises(NotImplementedError, match="splice"):
+        eng.step()
+
+
+def test_entry_points_need_a_device_or_an_explicit_cpu(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.models import api
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_params(get_smoke("stablelm-1.6b"))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+    probe = ("import sys, repro_torch.launch.serve; "
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
