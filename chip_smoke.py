@@ -11,23 +11,37 @@ Phases (any fault exits non-zero):
 2. build  — compile the port's CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel);
 3. kernels — hold each kernel bit for bit against its plain PyTorch version
-   on the card, at the serving path's shapes (stablelm-1.6b: N=32 ports,
-   W=32 32-bit words, 24 layers of a 2048-frame pool) and at edge cases
-   (sentinels, 16-bit words, N=4); then time kernel, plain version and one
-   PyTorch library call (the yardstick the port never calls), CUDA events,
-   median of 30 runs;
-4. serve — full-width stablelm-1.6b (random bf16 weights from a seed)
+   on the card, at each serving path's shapes (the stablelm-1.6b engine's
+   bursts: N=32 ports, W=32 32-bit words, 24 layers of a 2048-frame pool;
+   the gemma3-4b engine's: N=4, W=128, 5 layers of a 6400-frame pool; the
+   gemma3-4b one-shot's layout engine: K/V leaves [4, 1600, 4, 256] and
+   [4, 1024, 4, 256] bf16) and at edge cases (sentinels, 8/16/64-bit words,
+   ragged R and C, W=1, NaN payloads and -0.0); then time kernel, plain
+   version and one PyTorch library call (the yardstick the port never
+   calls), CUDA events, median of 30 runs (bursts with a warm L2, the
+   layout engine's leaves out of a flushed one);
+4. stablelm — full-width stablelm-1.6b (random bf16 weights from a seed)
    through the port's ServingEngine: 4 requests, prompt 448, gen 64, on the
    fused-gather path and on the gather-after-burst path; the kernel launch
-   counts must match the steps, and the two token streams must be equal.
-   A smoke config in float32 must agree between the card and the CPU;
-5. report — one ``{"kernels": [...]}`` line, the card line again, and the
-   ``{"ok": true, ...}`` line last.
+   counts must match the steps, and the two token streams must be equal;
+5. gemma3 — full-width gemma3-4b (34 layers, 5:1 sliding-window:global,
+   random bf16 weights from a seed), prompt 1536 (past the 1024 window),
+   gen 64, batch 4: (a) the one-shot ``greedy_generate`` through the
+   per-layer decode path, 68 layout-engine launches per decode step, run
+   again with the kernels off — tokens and every step's logits must be
+   bit-identical; (b) the engine on both decode paths, equal tokens, no
+   layout-engine launch;
+6. card vs CPU — the stablelm and gemma3 smoke configs in float32 agree
+   between the card and the CPU within 1e-4 (engine step; gemma3 one-shot);
+7. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+   path (its launches in that path's runs, its times at that path's
+   shapes), the card line again, and the ``{"ok": true, ...}`` line last.
 
-``--profile`` adds a ``torch.profiler`` census of the fused path's decode
-steps (after the launch counts are read): the device's busy share of the
-profiled window and the device time by kernel, printed and written in full
-to ``chiprun_out/profile_serve.txt``.
+``--profile`` adds ``torch.profiler`` censuses (after the launch counts
+are read) of the stablelm engine's fused decode steps and of gemma3-4b's
+one-shot decode steps with the layout-engine kernel on and off in turns:
+the device's busy share of each profiled window and the device time by
+kernel, printed and written in full to ``chiprun_out/profile_*.txt``.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 REPS = 30
+SPIN_CYCLES = 1_000_000            # ~0.5 ms at the H100's clock
 PROFILE_WARM, PROFILE_STEPS = 4, 8     # --profile: warm-up, profiled steps
 
 # kernel name → (source, reference Pallas kernel it replaces)
@@ -58,7 +73,17 @@ KERNELS = {
     "burst_network_tiles": (
         "src/repro_torch/kernels/csrc/burst_network.cu",
         "src/repro/kernels/medusa_transpose.py:182"),
+    "medusa_transpose_tiles": (
+        "src/repro_torch/kernels/csrc/medusa_transpose.cu",
+        "src/repro/kernels/medusa_transpose.py:72"),
 }
+# the engine runs: slots (= requests), stablelm-1.6b's prompt; gemma3-4b's
+# serving runs: batch, prompt (past the 1024 window), generated
+ENGINE_SLOTS, STABLELM_PROMPT = 4, 448
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_GEN = 4, 1536, 64
+# the kernels line's path of the layout engine (the engines' paths are
+# "<arch> engine")
+ONE_SHOT = "gemma3-4b one-shot"
 
 
 def fail(msg: str) -> None:
@@ -79,14 +104,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = REPS) -> float:
+def time_ms(torch, fn, reps: int = REPS, flush=None) -> float:
     """Median device time of ``fn()`` over ``reps`` runs (CUDA events),
-    after two warm-up calls."""
+    after two warm-up calls.  Before each run the device spins for about
+    half a millisecond (``torch.cuda._sleep``), so the host has enqueued
+    the start event, ``fn``'s launches and the end event before the device
+    reaches them: the span is device time, not the host's launch overhead.
+    With ``flush`` (a buffer larger than the 50 MB L2) the buffer is
+    rewritten first, so ``fn`` finds its operands in device memory as a
+    cold caller would."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -109,27 +143,101 @@ def bit_equal(torch, got, want, what: str) -> int:
     return err
 
 
-def kernels_phase(torch, dev):
-    """Kernel-vs-plain comparisons and timings; returns the rows of the
-    kernels line (launch counts filled in by the serve phase)."""
+def words_equal(torch, got, want, what: str) -> int:
+    """:func:`bit_equal` on same-width signed integer views, so NaN
+    payloads and -0.0 compare by their bits."""
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    check(got.dtype == want.dtype, f"{what}: {got.dtype} vs {want.dtype}")
+    w = view[got.element_size()]
+    return bit_equal(torch, got.view(w), want.view(w), what)
+
+
+def transpose_rows(torch, dev, gen, words):
+    """Kernel 4, the KV layout engine: bit-equal and timed at gemma3-4b's
+    two K/V leaf shapes, bit-equal at the edge cases.  Returns the row of
+    the kernels line (the ring leaf, 58 of the 68 launches per step) and
+    the full-attention leaf's numbers."""
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.kernels import ops
+
+    out = {}
+    # a K/V leaf is read once per layer per step, after 8 GB of weights and
+    # the other layers' leaves went by: time it out of a cold L2
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for what, t in (("A", GEMMA_PROMPT + GEMMA_GEN), ("L", 1024)):
+        x = words((GEMMA_BATCH, t, 4, 256), torch.int16).view(torch.bfloat16)
+        err = words_equal(torch, mt.medusa_transpose_tiles(x),
+                          mt.medusa_transpose_plain(x),
+                          f"transpose ({what} leaf)")
+        words_equal(torch, ops.kv_line_to_port(x),
+                    mt.medusa_transpose_plain(x), f"kv_line_to_port ({what})")
+        out[what] = dict(
+            max_abs_err=err, bytes=2 * x.numel() * 2,
+            ms=time_ms(torch, lambda: mt.medusa_transpose_tiles(x),
+                       flush=flush),
+            plain_ms=time_ms(torch, lambda: mt.medusa_transpose_plain(x),
+                             flush=flush),
+            library_ms=time_ms(torch, lambda: x.transpose(1, 2).contiguous(),
+                               flush=flush),
+            shape=f"[{GEMMA_BATCH}, {t}, 4, 256] bf16 ({what} leaf)")
+        del x
+    del flush
+    # edge cases: every word width, R and C not multiples of 4 (the kernel,
+    # and through ops.transpose_rc), W=1, NaN payloads and -0.0, a view off
+    # 16-byte alignment
+    for dtype, shape in ((torch.uint8, (3, 7, 5, 1)), (torch.int16, (7, 13, 3)),
+                         (torch.int32, (2, 9, 6, 2)), (torch.int64, (5, 3, 1)),
+                         (torch.float32, (2, 100, 36, 3)),
+                         (torch.bfloat16, (3, 11, 2, 16))):
+        if dtype.is_floating_point:
+            w = {2: torch.int16, 4: torch.int32}[dtype.itemsize]
+            x = words(shape, w).view(dtype)
+            special = {torch.float32: [0x7FC12345, -0x7FFFFF, -2 ** 31],
+                       torch.bfloat16: [0x7FC1, -0x5B, -0x8000]}[dtype]
+            x.view(w).view(-1)[:3] = torch.tensor(special, dtype=w)
+        elif dtype == torch.int64:            # two random 32-bit halves
+            x = words(tuple(shape) + (2,)).view(torch.int64)[..., 0]
+        else:
+            x = words(shape, dtype if dtype != torch.uint8 else torch.int16
+                      ).to(dtype)
+        what = f"transpose edge {dtype} {list(shape)}"
+        words_equal(torch, mt.medusa_transpose_tiles(x),
+                    mt.medusa_transpose_plain(x), what)
+        words_equal(torch, ops.transpose_rc(x), mt.medusa_transpose_plain(x),
+                    what + " (ops.transpose_rc)")
+    base = words((1 + 4 * 8 * 16,), torch.int16).view(torch.bfloat16)
+    x = base[1:].view(4, 8, 16)               # 2-byte aligned, not 16
+    words_equal(torch, mt.medusa_transpose_tiles(x),
+                mt.medusa_transpose_plain(x), "transpose edge unaligned view")
+    return out
+
+
+def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
+    """Kernels 1-3 at one engine path's geometry: ``arch``'s fabric (N
+    ports, a bf16 head vector folded into 32-bit words), its full-attention
+    layers stacked on the line axis of a pool of ``ENGINE_SLOTS`` slots x
+    ``prompt + gen_len`` frames in the engine's pages, every page mapped
+    (the live plan of a decode step past the prompt).  Each kernel is held
+    bit for bit against its plain version and timed beside it and one
+    library call; returns the rows of the kernels line."""
+    from repro_torch.configs import get_config
     from repro_torch.models import common as cm
     from repro_torch.kernels import medusa_transpose as mt
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-
-    def words(shape, dtype=torch.int32):
-        info = torch.iinfo(dtype)
-        return torch.randint(info.min, info.max, shape, generator=gen,
-                             device=dev, dtype=torch.int64).to(dtype)
-
-    # the serving path's shapes: stablelm-1.6b, 4 slots of 8 pages each on a
-    # 32-page pool of 64-timestep pages, 24 layers stacked on the line axis
-    n, w, reps, ps, pages = 32, 32, 24, 64, 32
+    cfg = get_config(arch)
+    n, ps = cfg.resolved_fabric.n_ports, cfg.resolved_fabric.page_size
+    w = cfg.resolved_head_dim // 2           # bf16 pairs in int32 words
+    reps = cfg.layer_types().count("A")
+    t_alloc = -(-(prompt + gen_len) // n) * n
+    per_slot = -(-t_alloc // ps)
+    pages = ENGINE_SLOTS * per_slot
     frames = pages * ps
+    check(frames % n == 0, f"{arch}: pool frames {frames} not a multiple "
+          f"of N={n}")
     table = torch.randperm(pages, generator=torch.Generator().manual_seed(0))
-    table = table.reshape(4, 8).numpy().astype("int32")
-    live_idx, _, _ = cm.page_live_plan(table, ps, 512, n, bucket=n * ps)
+    table = table.reshape(ENGINE_SLOTS, per_slot).numpy().astype("int32")
+    live_idx, _, _ = cm.page_live_plan(table, ps, t_alloc, n, bucket=n * ps)
+    dev = gen.device
     idx = cm.pool_rep_indices(torch.from_numpy(live_idx).to(dev), reps,
                               frames)
     lines = words((reps * frames, n, w))
@@ -139,7 +247,7 @@ def kernels_phase(torch, dev):
     # -- gather ----------------------------------------------------------------
     got = mt.gather_burst_network_tiles(lines, idx, n)
     err = bit_equal(torch, got, mt.gather_burst_plain(lines, idx, n),
-                    "gather (serving shape)")
+                    f"gather ({arch} engine shape)")
     valid = int(((idx >= 0) & (idx < lines.shape[0])).sum())
     nbytes = valid * n * w * 4 + k * 4 + k * n * w * 4
     lib_valid = (idx >= 0) & (idx < lines.shape[0])
@@ -165,7 +273,7 @@ def kernels_phase(torch, dev):
     into_k, into_p = into0.clone(), into0.clone()
     mt.scatter_burst_network_tiles(banked, idx, into_k, n)
     mt.scatter_burst_plain(banked, idx, into_p, n)
-    err = bit_equal(torch, into_k, into_p, "scatter (serving shape)")
+    err = bit_equal(torch, into_k, into_p, f"scatter ({arch} engine shape)")
     live = idx[(idx >= 0) & (idx < into0.shape[0])]
     check(live.unique().numel() == live.numel(), "scatter rows not unique")
     nbytes = g * n * n * w * 4 + k * 4 + live.numel() * n * w * 4
@@ -191,7 +299,7 @@ def kernels_phase(torch, dev):
     tile = words((n, n, 2 * (reps * frames // n) * w))
     got = mt.burst_network_tiles(tile, n)
     err = bit_equal(torch, got, mt.burst_network_plain(tile, n),
-                    "burst (serving shape)")
+                    f"burst ({arch} engine shape)")
     check(torch.equal(mt.burst_network_tiles(got, n), tile),
           "burst is not an involution")
     rows["burst_network_tiles"] = dict(
@@ -201,6 +309,26 @@ def kernels_phase(torch, dev):
         library_ms=time_ms(torch, lambda: tile.transpose(0, 1).contiguous()),
         shape=f"tile {list(tile.shape)} int32")
     del tile, got, lines
+    return rows
+
+
+def kernels_phase(torch, dev):
+    """Kernel-vs-plain comparisons and timings; returns the rows of the
+    kernels line by path (launch counts filled in by the serve phases)."""
+    from repro_torch.kernels import medusa_transpose as mt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def words(shape, dtype=torch.int32):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(dtype)
+
+    # kernels 1-3 at each engine path's geometry
+    rows = {f"{arch} engine": burst_rows(torch, gen, words, arch, prompt, g)
+            for arch, prompt, g in (("stablelm-1.6b", STABLELM_PROMPT, 64),
+                                    ("gemma3-4b", GEMMA_PROMPT, GEMMA_GEN))}
 
     # -- edge cases: sentinels, 16-bit and 8-bit words, N=4, odd widths -------
     for n_e, dtype, w_e in ((4, torch.int16, 3), (32, torch.int16, 64),
@@ -228,11 +356,19 @@ def kernels_phase(torch, dev):
         tile_e = words((n_e, n_e, w_e), dtype)
         bit_equal(torch, mt.burst_network_tiles(tile_e, n_e),
                   mt.burst_network_plain(tile_e, n_e), f"burst edge {what}")
+
+    # -- the KV layout engine: the kernels line carries the ring leaf (58 of
+    #    the 68 launches per step), the full-attention leaf is printed ------
+    leaves = transpose_rows(torch, dev, gen, words)
+    rows[ONE_SHOT] = {"medusa_transpose_tiles": leaves["L"]}
     torch.cuda.synchronize()
-    for name, r in rows.items():
+    for path, name, r in ([(p, k, r) for p, by in rows.items()
+                           for k, r in by.items()]
+                          + [(ONE_SHOT, "medusa_transpose_tiles",
+                              leaves["A"])]):
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        print(f"kernel {name}: {r['shape']}: {r['ms']:.4f} ms (bound "
-              f"{r['bound_ms']:.4f} ms for {r['bytes']} bytes, plain "
+        print(f"kernel {name} ({path}): {r['shape']}: {r['ms']:.4f} ms "
+              f"(bound {r['bound_ms']:.4f} ms for {r['bytes']} bytes, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)",
               flush=True)
     return rows
@@ -260,29 +396,23 @@ def serve(torch, cfg, params, prompts, fused: bool, gen_len: int):
     return [r.generated for r in reqs], steps, eng
 
 
-def profile_serve(torch, cfg, params, prompts) -> None:
-    """``torch.profiler`` over ``PROFILE_STEPS`` decode steps of the fused
-    path (after ``PROFILE_WARM`` engine steps): device busy share of the
-    window (union of kernel intervals over the host's wall time), launches
-    and aten ops per step, and device time by kernel."""
+def census(torch, label: str, step, out_name: str) -> None:
+    """``torch.profiler`` over ``PROFILE_STEPS`` calls of ``step()`` (after
+    ``PROFILE_WARM`` unprofiled ones): the device's busy share of the window
+    (union of kernel intervals over the host's wall time), kernels, launch
+    calls and aten ops per step, and device time by kernel; the full tables
+    go to ``chiprun_out/profile_<out_name>.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import Request, ServingEngine
-
-    gen_len = PROFILE_WARM + PROFILE_STEPS + 2
-    eng = ServingEngine(cfg, params, max_slots=len(prompts),
-                        t_max=prompts.shape[1] + gen_len, fused_gather=True)
-    for i in range(len(prompts)):
-        eng.submit(Request(i, prompts[i], max_new_tokens=gen_len))
     for _ in range(PROFILE_WARM):
-        eng.step()
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = list(prof.events())
@@ -303,8 +433,8 @@ def profile_serve(torch, cfg, params, prompts) -> None:
                               "cudaLaunchKernelExC", "cuLaunchKernelEx")
                    for e in cpu_ev)
     step_ms = wall_us / PROFILE_STEPS / 1e3
-    print(f"profile: {PROFILE_STEPS} fused decode steps, {step_ms:.3f} ms "
-          f"per step under the profiler; device busy {busy / 1e3:.3f} ms of "
+    print(f"profile {label}: {PROFILE_STEPS} steps, {step_ms:.3f} ms per "
+          f"step under the profiler; device busy {busy / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms = {100 * busy / wall_us:.2f} %; "
           f"{len(dev_ev) / PROFILE_STEPS:.1f} device kernels, "
           f"{launches / PROFILE_STEPS:.1f} launch calls and "
@@ -314,30 +444,63 @@ def profile_serve(torch, cfg, params, prompts) -> None:
     lines = [f"{t / PROFILE_STEPS / 1e3:9.4f} ms/step {c / PROFILE_STEPS:7.1f}"
              f" launches/step  {name}" for name, (c, t) in ranked]
     for line in lines[:12]:
-        print(f"profile kernel: {line[:160]}", flush=True)
+        print(f"profile {label} kernel: {line[:150]}", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_serve.txt").write_text(
+    (out / f"profile_{out_name}.txt").write_text(
         "\n".join(lines) + "\n\n" + prof.key_averages().table(
             sort_by="self_cpu_time_total", row_limit=60) + "\n")
+
+
+def profile_serve(torch, cfg, params, prompts) -> None:
+    """The census of the stablelm engine's fused decode steps."""
+    from repro_torch.serving import Request, ServingEngine
+
+    gen_len = PROFILE_WARM + PROFILE_STEPS + 2
+    eng = ServingEngine(cfg, params, max_slots=len(prompts),
+                        t_max=prompts.shape[1] + gen_len, fused_gather=True)
+    for i in range(len(prompts)):
+        eng.submit(Request(i, prompts[i], max_new_tokens=gen_len))
+    census(torch, "stablelm-1.6b fused engine", eng.step, "serve")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def serve_phase(torch, dev, rows, with_profile: bool):
-    from repro_torch.configs import get_config, get_smoke
-    from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import medusa_transpose as mt
-    from repro_torch.models import api
+def profile_one_shot(torch, api, ops, cfg, params, prompt) -> None:
+    """The census of gemma3-4b's one-shot decode steps (``api.decode_fn``
+    without a scheduler), with the layout-engine kernel on and off in turns
+    (on, off, on, off) from one prefill, positions advancing."""
+    s = prompt.shape[1]
+    logits, caches = api.prefill_fn(params, {"tokens": prompt}, cfg,
+                                    s + GEMMA_GEN)
+    state = {"tok": torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+        prompt.dtype), "pos": s}
 
-    cfg = get_config("stablelm-1.6b")
-    prompts = SyntheticLM(cfg, batch=4, seq=448, seed=0).batch_at(0)["tokens"]
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    print(f"serve: stablelm-1.6b full width ({cfg.param_count()} params, "
-          f"bf16) initialised in {time.perf_counter() - t0:.1f}s", flush=True)
+    def step():
+        lg, _ = api.decode_fn(params, state["tok"], caches, state["pos"], cfg)
+        state["tok"] = torch.argmax(lg[:, -1], dim=-1)[:, None].to(
+            prompt.dtype)
+        state["pos"] += 1
+    for turn, on in enumerate((True, False, True, False)):
+        ops.use_kernels(on)
+        try:
+            census(torch, f"gemma3-4b one-shot kernels={'on' if on else 'off'}",
+                   step, f"one_shot_{turn}_{'on' if on else 'off'}")
+        finally:
+            ops.use_kernels(True)
+    del caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def engine_paths(torch, cfg, params, prompts, rows, leaf_shape, label):
+    """Serve ``prompts`` (64 tokens each) on the fused-gather and the
+    gather-after-burst path, counts reset just before each and read just
+    after; the pool leaf's shape, the launch counts (no layout-engine
+    launch), finite logits and equal token streams are checked.  The
+    counts add to the path's ``rows``."""
+    from repro_torch.kernels import medusa_transpose as mt
 
     runs = {}
     for fused in (True, False):
@@ -345,82 +508,216 @@ def serve_phase(torch, dev, rows, with_profile: bool):
         toks, steps, eng = serve(torch, cfg, params, prompts, fused, 64)
         counts = mt.launch_counts()
         fs, kv = eng.fabric_stats, eng.kv
-        leaf = kv.caches["unit"][0]["k"]
-        check(tuple(leaf.shape) == (24, 32, 64, 32, 64)
+        kind, i = eng.kv.paged_entries[0]
+        leaf = kv.caches[kind][i]["k"]
+        check(tuple(leaf.shape) == leaf_shape
               and leaf.dtype == torch.bfloat16,
-              f"pool leaf {leaf.dtype} {tuple(leaf.shape)}")
+              f"{label}: pool leaf {leaf.dtype} {tuple(leaf.shape)}")
         waves = kv.prefill_bursts
         decode_steps = (fs.flushes - waves) // 2
         check(decode_steps == 63 and waves == 1,
-              f"expected 63 decode steps in 1 wave, got {decode_steps} "
-              f"in {waves}")
+              f"{label}: expected 63 decode steps in 1 wave, got "
+              f"{decode_steps} in {waves}")
         if fused:
             want = {"gather_burst_network_tiles": 2 * decode_steps,
                     "scatter_burst_network_tiles": 2 * decode_steps
                     + 2 * waves,
-                    "burst_network_tiles": 0}
+                    "burst_network_tiles": 0, "medusa_transpose_tiles": 0}
         else:
             want = {"gather_burst_network_tiles": 0,
                     "scatter_burst_network_tiles": 0,
-                    "burst_network_tiles": 2 * decode_steps + waves}
-        check(counts == want, f"fused={fused}: launches {counts} != {want}")
-        for name, c in counts.items():
-            if c:
-                rows[name]["launches"] = c
+                    "burst_network_tiles": 2 * decode_steps + waves,
+                    "medusa_transpose_tiles": 0}
+        check(counts == want,
+              f"{label} fused={fused}: launches {counts} != {want}")
+        for name, r in rows[f"{label} engine"].items():
+            r["launches"] = r.get("launches", 0) + counts[name]
         flat = [t for s in toks for t in s]
-        check(all(len(s) == 64 for s in toks), "short token streams")
+        check(all(len(s) == 64 for s in toks), f"{label}: short streams")
         check(all(0 <= t < cfg.vocab_size for t in flat),
-              "token outside the vocab")
-        logits = eng.last_logits
-        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+              f"{label}: token outside the vocab")
+        check(bool(torch.isfinite(eng.last_logits).all()),
+              f"{label}: non-finite logits")
         dec = steps[1:]
         tok_s = sum(len(s) for s in toks) / sum(steps)
-        print(f"serve fused_gather={fused}: {len(toks)} requests x 64 tokens "
-              f"in {sum(steps):.3f}s ({tok_s:.1f} tok/s incl. prefill); "
-              f"median decode step {statistics.median(dec) * 1e3:.3f} ms "
-              f"over {len(dec)} steps; admission step "
-              f"{steps[0] * 1e3:.1f} ms; launches {counts}", flush=True)
+        print(f"{label} engine fused_gather={fused}: {len(toks)} requests x "
+              f"64 tokens in {sum(steps):.3f}s ({tok_s:.1f} tok/s incl. "
+              f"prefill); median decode step "
+              f"{statistics.median(dec) * 1e3:.3f} ms over {len(dec)} steps; "
+              f"admission step {steps[0] * 1e3:.1f} ms; launches {counts}",
+              flush=True)
         runs[fused] = toks
         del eng
         gc.collect()
         torch.cuda.empty_cache()
     check(runs[True] == runs[False],
-          "fused and gather-after-burst paths served different tokens")
+          f"{label}: fused and gather-after-burst paths served different "
+          f"tokens")
+
+
+def stablelm_phase(torch, dev, rows, with_profile: bool):
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import api
+
+    cfg = get_config("stablelm-1.6b")
+    prompts = SyntheticLM(cfg, batch=ENGINE_SLOTS, seq=STABLELM_PROMPT,
+                          seed=0).batch_at(0)["tokens"]
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"serve: stablelm-1.6b full width ({cfg.param_count()} params, "
+          f"bf16) initialised in {time.perf_counter() - t0:.1f}s", flush=True)
+    engine_paths(torch, cfg, params, prompts, rows, (24, 32, 64, 32, 64),
+                 "stablelm-1.6b")
     if with_profile:
         profile_serve(torch, cfg, params, prompts)
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    # card vs CPU on a small input: the smoke config in float32, the same
-    # parameters on both devices, one engine step then the whole run
-    small = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
-    p_cpu = api.init_params(small, seed=1, device="cpu")
-    p_gpu = api.init_params(small, seed=1, device="cpu").to(dev)
-    sp = SyntheticLM(small, batch=3, seq=10, seed=1).batch_at(0)["tokens"]
+
+def generate(torch, api, params, prompt, cfg, steps: int, t_max: int):
+    """``api.greedy_generate`` with every step's logits kept and the
+    synchronised interval between consecutive steps' logits timed."""
+    logits, stamps = [], []
+
+    def on_step(i, lg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        logits.append(lg.clone())
+    toks = api.greedy_generate(params, prompt, cfg, steps=steps, t_max=t_max,
+                               on_step=on_step)
+    torch.cuda.synchronize()
+    return toks, logits, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def gemma_phase(torch, dev, rows, with_profile: bool):
+    """gemma3-4b at full width: the one-shot generate through the per-layer
+    decode path (kernel 4), kernels on and off, then the engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    cfg = get_config("gemma3-4b")
+    b, s, g = GEMMA_BATCH, GEMMA_PROMPT, GEMMA_GEN
+    prompts = SyntheticLM(cfg, batch=b, seq=s, seed=0).batch_at(0)["tokens"]
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"serve: gemma3-4b full width ({cfg.param_count()} params, bf16) "
+          f"initialised in {time.perf_counter() - t0:.1f}s", flush=True)
+    prompt = torch.as_tensor(prompts, device=dev)
+
+    # (a) one-shot: per-layer decode, 2 layout-engine launches per layer
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, logits, steps = generate(torch, api, params, prompt, cfg, g, s + g)
+    wall = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    per_step = 2 * cfg.n_layers
+    want = {"gather_burst_network_tiles": 0, "scatter_burst_network_tiles": 0,
+            "burst_network_tiles": 0, "medusa_transpose_tiles": per_step * g}
+    check(counts == want, f"gemma3 one-shot: launches {counts} != {want}")
+    rows[ONE_SHOT]["medusa_transpose_tiles"]["launches"] = counts[
+        "medusa_transpose_tiles"]
+    check(tuple(toks.shape) == (b, g), f"one-shot tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "one-shot token outside the vocab")
+    check(all(bool(torch.isfinite(lg).all()) for lg in logits),
+          "one-shot: non-finite logits")
+    print(f"gemma3-4b one-shot: batch {b} x prompt {s} + {g} tokens in "
+          f"{wall:.3f}s ({b * g / wall:.1f} tok/s incl. prefill); median "
+          f"decode step {statistics.median(steps) * 1e3:.3f} ms over "
+          f"{len(steps)} steps; {per_step} layout-engine launches per step "
+          f"({counts['medusa_transpose_tiles']} in all)", flush=True)
+
+    # the same run with the kernels off: pure movement, so bit-identical
+    ops.use_kernels(False)
+    try:
+        mt.reset_launch_counts()
+        toks_off, logits_off, steps_off = generate(torch, api, params, prompt,
+                                                   cfg, g, s + g)
+        check(mt.launch_counts()["medusa_transpose_tiles"] == 0,
+              "kernels off still launched the layout engine")
+    finally:
+        ops.use_kernels(True)
+    check(torch.equal(toks, toks_off),
+          "one-shot tokens differ with the kernels on and off")
+    for i, (a, c) in enumerate(zip(logits, logits_off)):
+        check(torch.equal(a.view(torch.int32), c.view(torch.int32)),
+              f"one-shot step {i} logits differ with the kernels on and off "
+              f"(max abs {float((a - c).abs().max())})")
+    print(f"gemma3-4b one-shot kernels off: tokens and all {g} steps' logits "
+          f"bit-identical; median decode step "
+          f"{statistics.median(steps_off) * 1e3:.3f} ms", flush=True)
+    del logits, logits_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    if with_profile:
+        profile_one_shot(torch, api, ops, cfg, params, prompt)
+
+    # (b) the engine: paged A layers through the bursts, per-slot L rings
+    reps = cfg.n_layers // len(cfg.block_pattern)
+    engine_paths(torch, cfg, params, prompts, rows,
+                 (reps, b * -(-(s + g) // 64), 64, cfg.n_kv_heads,
+                  cfg.resolved_head_dim), "gemma3-4b")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def card_vs_cpu(torch, dev):
+    """The smoke configs in float32, the same parameters on both devices:
+    first-step logits within 1e-4 (engine step; gemma3 also one-shot)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import api
     from repro_torch.serving import Request, ServingEngine
-    engs = {}
-    for name, p in (("cpu", p_cpu), ("gpu", p_gpu)):
-        e = ServingEngine(small, p, max_slots=3, t_max=18)
-        for i in range(3):
-            e.submit(Request(i, sp[i], max_new_tokens=6))
-        e.step()
-        engs[name] = e
-    a = engs["gpu"].last_logits.cpu()
-    b = engs["cpu"].last_logits
-    check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
-          f"card vs CPU logits differ by {float((a - b).abs().max())}")
-    for e in engs.values():
-        e.run_to_completion()
-    check([r for r in engs["gpu"].active] == [None] * 3, "smoke not drained")
-    print(f"smoke float32 card vs CPU: first-step logits max abs diff "
-          f"{float((a - b).abs().max()):.2e} (tolerance 1e-4)", flush=True)
+
+    for arch in ("stablelm-1.6b", "gemma3-4b"):
+        small = dataclasses.replace(get_smoke(arch), dtype="float32")
+        p_cpu = api.init_params(small, seed=1, device="cpu")
+        p_gpu = api.init_params(small, seed=1, device="cpu").to(dev)
+        sp = SyntheticLM(small, batch=3, seq=10, seed=1).batch_at(0)["tokens"]
+        firsts, engs = {}, {}
+        for name, p in (("cpu", p_cpu), ("gpu", p_gpu)):
+            e = ServingEngine(small, p, max_slots=3, t_max=18)
+            for i in range(3):
+                e.submit(Request(i, sp[i], max_new_tokens=6))
+            e.step()
+            engs[name] = e
+            if arch == "gemma3-4b":
+                seen = []
+                api.greedy_generate(
+                    p, torch.as_tensor(sp, device=p.embed["table"].device),
+                    small, steps=3, t_max=15,
+                    on_step=lambda i, lg: seen.append(lg.cpu()))
+                firsts[name] = seen[0]
+        pairs = [("engine", engs["gpu"].last_logits.cpu(),
+                  engs["cpu"].last_logits)]
+        if firsts:
+            pairs.append(("one-shot", firsts["gpu"], firsts["cpu"]))
+        for what, a, c in pairs:
+            err = float((a - c).abs().max())
+            check(torch.allclose(a, c, atol=1e-4, rtol=1e-4),
+                  f"{arch} {what}: card vs CPU logits differ by {err}")
+            print(f"smoke {arch} float32 {what} card vs CPU: first-step "
+                  f"logits max abs diff {err:.2e} (tolerance 1e-4)",
+                  flush=True)
+        for e in engs.values():
+            e.run_to_completion()
+        check(all(r is None for r in engs["gpu"].active),
+              f"{arch} smoke not drained")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the fused path's decode steps")
+                    help="also profile the stablelm engine's and the "
+                         "gemma3 one-shot decode steps")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -447,17 +744,26 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f}s ({build.BUILD_DIR})", flush=True)
 
     rows = kernels_phase(torch, dev)
-    serve_phase(torch, dev, rows, args.profile)
+    stablelm_phase(torch, dev, rows, args.profile)
+    gemma_phase(torch, dev, rows, args.profile)
+    card_vs_cpu(torch, dev)
 
+    # one entry per kernel and path: its launches on that path's runs, its
+    # times and bound at that path's shapes
     line = []
-    for name, (source, replaces) in KERNELS.items():
-        r = rows[name]
-        check(r.get("launches", 0) > 0, f"{name} never launched on the path")
-        line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": r["launches"],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": "bytes", "library_ms": r["library_ms"]})
+    for path, by_kernel in rows.items():
+        for name, r in by_kernel.items():
+            source, replaces = KERNELS[name]
+            check(r.get("launches", 0) > 0,
+                  f"{name} never launched on the {path} path")
+            line.append({"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": r["launches"],
+                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": "bytes", "library_ms": r["library_ms"],
+                         "path": path, "shape": r["shape"]})
+    check({e["name"] for e in line} == set(KERNELS),
+          "the kernels line misses a kernel")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ from repro_torch.configs.base import FabricConfig, ModelConfig
 
 ARCHS = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
 }
 
 

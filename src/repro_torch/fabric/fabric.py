@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import FabricConfig
 from repro_torch.core import transpose as _t
+from repro_torch.kernels import medusa_transpose as mt
 from repro_torch.kernels import ops as kops
 
 
@@ -78,6 +79,19 @@ class Fabric:
         if self.impl == "medusa":
             return _t.write_network_medusa(banked, n)
         return _t.write_network_oracle(banked, n)
+
+    def kv_port_major(self, c: torch.Tensor) -> torch.Tensor:
+        """KV-cache layout engine: line-major ``[B, T, Hkv, D]`` (one
+        timestep = one wide line across heads) → port-major ``[B, Hkv, T,
+        D]`` (one deep-narrow stream per head).  On the medusa fabric this
+        is :func:`repro_torch.kernels.ops.kv_line_to_port`: one
+        layout-engine kernel launch for the whole batch (the reference
+        vmaps one kernel call over B), or the plain swap with the kernels
+        off; the oracle impl takes the plain swap.  Either way the result
+        is contiguous."""
+        if self.impl == "medusa":
+            return kops.kv_line_to_port(c)
+        return mt.medusa_transpose_plain(c)
 
     # -- first-class bursts (the scheduler's hot path) -------------------------
     @property

@@ -14,9 +14,11 @@ contract each paged leaf takes the whole wave as one scatter-indexed write
 stream that lands every prompt frame at its physical row, in place
 (:meth:`PagedKVCache._pool_install_fused`); otherwise dense ``prefill/*``
 write streams go through the network and their output is copied into the
-mapped pages (:meth:`PagedKVCache._pool_install`).  The per-leaf splice
-of slots whose extents miss the network geometry, and swap, are ported in
-later slices.
+mapped pages (:meth:`PagedKVCache._pool_install`).  The leaves the pool
+does not back (a sliding-window layer's ring) stay per slot and are copied
+into the slot's row at admission (:meth:`PagedKVCache._splice_unpaged`).
+The per-leaf splice of slots whose extents miss the network geometry, and
+swap, are ported in later slices.
 """
 
 from __future__ import annotations
@@ -148,11 +150,10 @@ class PagedKVCache:
 
     ``caches`` is what ``api.init_cache(..., pool_pages=...)`` built:
     ``{"unit": [{"k", "v"}...], "tail": [...]}`` with pool leaves
-    ``[reps, n_pages, page_size, Hkv, D]`` for the ``paged_entries``.  The
-    wrapper keeps that structure; admission writes into it in place.  Every
-    leaf of the attention-only models this slice serves is paged; the
-    splice of unpaged leaves (ring windows, recurrent state) comes with
-    the families that have them."""
+    ``[reps, n_pages, page_size, Hkv, D]`` for the ``paged_entries``, and
+    per-slot ring leaves ``[reps, max_slots, W, Hkv, D]`` (``[max_slots, W,
+    Hkv, D]`` in the tail) for the sliding-window layers.  The wrapper
+    keeps that structure; admission writes into it in place."""
 
     def __init__(self, caches, max_slots: int, t_max: int, page_size: int,
                  pool_pages: int = 0, paged_entries=(), fabric=None,
@@ -208,6 +209,8 @@ class PagedKVCache:
             self.pool.ensure(slot, self.table.pages_for(n_tokens + 1))
             plans.append((slot, req_cache, span))
         self._pool_install(plans, stats=stats)
+        for slot, req_cache, _ in plans:
+            self._splice_unpaged(slot, req_cache)
 
     # -- decode-time bookkeeping ----------------------------------------------
     def update(self, new_caches) -> None:
@@ -231,6 +234,22 @@ class PagedKVCache:
         raise NotImplementedError(_SWAP_TODO)
 
     # -- install paths ---------------------------------------------------------
+    def _splice_unpaged(self, slot: int, req_cache) -> None:
+        """Copy a request's non-paged leaves (its ring windows, batch 1)
+        into row ``slot`` of the engine's per-slot leaves, in place.  The
+        slot axis is the leaf's known one — 1 under the ``unit`` stack, 0
+        in the ``tail`` — not guessed from the shape (the reference takes
+        axis 1 whenever ``shape[1] == max_slots``, which misplaces a tail
+        ring whose window equals ``max_slots``)."""
+        paged = set(self.paged_entries)
+        for kind in ("unit", "tail"):
+            axis = 1 if kind == "unit" else 0
+            for i, entry in enumerate(self.caches[kind]):
+                if (kind, i) in paged:
+                    continue
+                for name, leaf in entry.items():
+                    leaf.narrow(axis, slot, 1).copy_(req_cache[kind][i][name])
+
     def _req_frames(self, req_cache, kind: str, i: int, name: str,
                     span: int) -> torch.Tensor:
         """A request's first ``span`` timesteps of one paged leaf, as

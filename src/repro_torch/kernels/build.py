@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("gather_burst", "scatter_burst", "burst_network")
+SOURCES = ("gather_burst", "scatter_burst", "burst_network",
+           "medusa_transpose")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -1,14 +1,17 @@
-"""The Medusa burst kernels on Hopper, with their plain PyTorch versions.
+"""The Medusa kernels on Hopper, with their plain PyTorch versions.
 
-Three CUDA kernels (sources in ``csrc/``) replace the Pallas kernels of
-``repro.kernels.medusa_transpose`` on the serving path:
+Four CUDA kernels (sources in ``csrc/``) replace the Pallas kernels of
+``repro.kernels.medusa_transpose``:
 
 * :func:`gather_burst_network_tiles` — fused page-table gather + read
   network (``csrc/gather_burst.cu``);
 * :func:`scatter_burst_network_tiles` — fused write network + page-table
   scatter, in place (``csrc/scatter_burst.cu``);
 * :func:`burst_network_tiles` — the dense ``[N, N, W]`` burst, an
-  involution serving both directions (``csrc/burst_network.cu``).
+  involution serving both directions (``csrc/burst_network.cu``);
+* :func:`medusa_transpose_tiles` — the KV-cache layout engine, ``[B, R, C,
+  W] → [B, C, R, W]`` (``csrc/medusa_transpose.cu``), on the per-layer
+  decode path.
 
 Each wrapper takes its plain version (``*_plain``, index / where / permute
 on tensors) for a tensor on the CPU, launches its kernel for a CUDA tensor,
@@ -36,7 +39,8 @@ _WORD_BYTES = (1, 2, 4, 8)
 
 _launches: Dict[str, int] = {"gather_burst_network_tiles": 0,
                              "scatter_burst_network_tiles": 0,
-                             "burst_network_tiles": 0}
+                             "burst_network_tiles": 0,
+                             "medusa_transpose_tiles": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -80,12 +84,19 @@ _DENSE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
+_BOUND: Dict[str, object] = {}
+
+
 def _bind(source: str, symbol: str, argtypes):
     """The C entry point ``symbol`` of the library built from ``source``,
-    with its argument and return types declared."""
-    fn = getattr(build.load(source), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    with its argument and return types declared (bound once per
+    process)."""
+    fn = _BOUND.get(symbol)
+    if fn is None:
+        fn = getattr(build.load(source), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _BOUND[symbol] = fn
     return fn
 
 
@@ -226,4 +237,56 @@ def burst_network_tiles(tile: torch.Tensor, n_ports: int) -> torch.Tensor:
     _launches["burst_network_tiles"] += 1
     _raise_on(fn(tile.data_ptr(), out.data_ptr(), n, tile.shape[2], wb,
                  _stream(tile)), "burst_network_tiles")
+    return out
+
+
+# ----------------------------------------------------------------------------
+# 4. the KV-cache layout engine (line-major → port-major)
+# ----------------------------------------------------------------------------
+
+_TRANSPOSE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
+
+
+def medusa_transpose_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version: swap the two axes before the payload axis, into a
+    contiguous tensor (``[..., R, C, W] → [..., C, R, W]``)."""
+    return x.transpose(-3, -2).contiguous()
+
+
+def _row_word(t: torch.Tensor, out: torch.Tensor) -> int:
+    """The widest machine word (16, 8, 4, 2 or 1 bytes) that divides a
+    payload row's bytes and both buffers' alignment."""
+    row = t.shape[-1] * t.element_size()
+    for wb in (16, 8, 4, 2, 1):
+        if row % wb == 0 and t.data_ptr() % wb == 0 \
+                and out.data_ptr() % wb == 0:
+            return wb
+    return 1
+
+
+def medusa_transpose_tiles(x: torch.Tensor) -> torch.Tensor:
+    """Transpose the two leading axes of ``x [R, C, W]`` → ``[C, R, W]``,
+    or of every batch row of ``x [B, R, C, W]`` → ``[B, C, R, W]`` in one
+    launch.  The kernel computes the permutation directly, so R and C may
+    be any size (the reference's Pallas kernel wants multiples of a
+    power-of-two tile).  Returns a contiguous tensor of ``x``'s dtype."""
+    if x.ndim not in (3, 4):
+        raise ValueError(f"transpose wants [R, C, W] or [B, R, C, W], got "
+                         f"{tuple(x.shape)}")
+    r, c = x.shape[-3], x.shape[-2]
+    if x.device.type == "cpu":
+        return medusa_transpose_plain(x)
+    _check_cuda("medusa_transpose_tiles", x=x)
+    _word_bytes(x, "medusa_transpose_tiles")
+    out = torch.empty(x.shape[:-3] + (c, r, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    wb = _row_word(x, out)
+    b = x.shape[0] if x.ndim == 4 else 1
+    fn = _bind("medusa_transpose", "medusa_transpose", _TRANSPOSE_ARGS)
+    _launches["medusa_transpose_tiles"] += 1
+    _raise_on(fn(x.data_ptr(), out.data_ptr(), b, r, c,
+                 x.shape[-1] * x.element_size() // wb, wb, _stream(x)),
+              "medusa_transpose_tiles")
     return out

@@ -1,5 +1,5 @@
-"""Dispatch for the burst kernels (port of ``repro.kernels.ops``, the three
-ops on the serving path).
+"""Dispatch for the Medusa kernels (port of ``repro.kernels.ops``: the
+three burst ops of the serving path and the KV-cache layout engine).
 
 With kernels enabled (the default) each op calls its kernel wrapper in
 :mod:`repro_torch.kernels.medusa_transpose`, which launches the CUDA kernel
@@ -29,6 +29,25 @@ def use_kernels(enabled: bool) -> None:
 
 def kernels_enabled() -> bool:
     return _USE_KERNELS
+
+
+def transpose_rc(x: torch.Tensor) -> torch.Tensor:
+    """Swap the two leading axes of ``x [R, C, W]`` → ``[C, R, W]`` (or of
+    each row of ``x [B, R, C, W]``, one launch for the batch) through the
+    layout-engine kernel.  The kernel computes the permutation for any R
+    and C, so the reference's power-of-two tile padding has nothing to do
+    here.  Kernels off: the plain swap.  Either way the result is
+    contiguous, so what consumes it sees the same strides."""
+    if not _USE_KERNELS:
+        return mt.medusa_transpose_plain(x)
+    return mt.medusa_transpose_tiles(x)
+
+
+def kv_line_to_port(kv: torch.Tensor) -> torch.Tensor:
+    """KV-cache layout engine: line-major ``[T, H, D]`` (one timestep = one
+    wide line across heads) → port-major ``[H, T, D]`` (one stream per
+    head); ``[B, T, H, D]`` → ``[B, H, T, D]`` in one launch."""
+    return transpose_rc(kv)
 
 
 def burst_read(tile: torch.Tensor, n_ports: int) -> torch.Tensor:

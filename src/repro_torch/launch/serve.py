@@ -1,13 +1,21 @@
-"""Serving CLI: ``python -m repro_torch.launch.serve --arch <id> --engine``.
+"""Serving CLI: ``python -m repro_torch.launch.serve --arch <id>
+[--engine]``.
 
-Serves synthetic requests through the paged continuous-batching
-:class:`repro_torch.serving.ServingEngine` on the CUDA device (``--device
-cpu`` runs the plain kernel versions on the CPU).  Weights are random,
-drawn from ``--seed``.  The decode step is burst-scheduled: with the fused
-gather (default) each K/V pool leaf is one gather kernel launch and one
-scatter kernel launch per step; ``--no-fused-gather`` banks the whole pool
-through the dense burst kernel instead.  Prints throughput, the fabric
-census and the kernel launch counts.
+Runs on the CUDA device (``--device cpu`` runs the plain kernel versions
+on the CPU) with random weights drawn from ``--seed`` and synthetic
+prompts.  Two modes, as the reference's:
+
+* one-shot (default): ``api.greedy_generate`` over the batch through the
+  per-layer decode path, which reads every layer's K/V through the fabric's
+  layout engine (one transpose kernel launch per K/V leaf per layer);
+* ``--engine``: the paged continuous-batching
+  :class:`repro_torch.serving.ServingEngine`, whose decode step is
+  burst-scheduled — with the fused gather (default) each K/V pool leaf is
+  one gather kernel launch and one scatter kernel launch per step;
+  ``--no-fused-gather`` banks the whole pool through the dense burst
+  kernel instead.
+
+Prints throughput, the fabric census (engine) and the kernel launch counts.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ def main(argv=None):
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--engine", action="store_true",
                     help="serve through the paged continuous-batching engine "
-                         "(the only serving mode of this port so far)")
+                         "(default: one-shot batch generate)")
     ap.add_argument("--page-size", type=int, default=0,
                     help="KV page size in timesteps (0 = fabric default)")
     ap.add_argument("--pool-pages", type=int, default=0,
@@ -54,10 +62,6 @@ def main(argv=None):
                          "bursts (default on); --no-fused-gather banks the "
                          "whole pool and gathers after the burst")
     args = ap.parse_args(argv)
-    if not args.engine:
-        raise NotImplementedError(
-            "the one-shot batch generate uses the per-layer decode path, "
-            "ported with the next slice; pass --engine")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # float32 products in full precision, as the reference
@@ -79,6 +83,21 @@ def main(argv=None):
           f"N={fab.n_ports} W_acc={fab.lane_width} page={fab.page_size} "
           f"pack={fab.pack} fold={fab.word_fold}] batch={args.batch} "
           f"prompt={args.prompt_len} gen={args.gen_len}")
+    if not args.engine:
+        prompt = torch.as_tensor(prompts, device=device)
+        mt.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = api.greedy_generate(params, prompt, cfg, steps=args.gen_len,
+                                  t_max=t_max)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        print(f"generated {tuple(out.shape)} in {dt:.3f}s "
+              f"({args.batch * args.gen_len / dt:.1f} tok/s, prefill "
+              f"included)")
+        print(f"kernel launches: {mt.launch_counts()}")
+        print("sample:", out[0][:16].tolist())
+        return
     eng = ServingEngine(cfg, params, max_slots=args.batch, t_max=t_max,
                         pool_pages=args.pool_pages,
                         fused_gather=args.fused_gather)

@@ -1,9 +1,11 @@
 """Unified model API (port of ``repro.models.api`` for the decoder-only
 serving path): ``init_params``, ``prefill_fn``, ``init_cache``,
-``decode_fn``.  Entry points run on ``cuda`` unless ``device="cpu"`` is
-passed; they raise when no CUDA device is present."""
+``decode_fn``, ``greedy_generate``.  Entry points run on ``cuda`` unless
+``device="cpu"`` is passed; they raise when no CUDA device is present."""
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
@@ -37,8 +39,34 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
 def decode_fn(params: lm.LM, token, caches, pos, cfg: ModelConfig,
               sched=None, page_table=None, page_size: int = 0,
               t_depth: int = 0, live_plan=None):
-    """One decode step through the burst scheduler ``sched`` (see
+    """One decode step: the per-layer path without ``sched``, the
+    burst-scheduled step with a ``BurstScheduler`` (see
     :func:`repro_torch.models.lm.decode_step`)."""
     return lm.decode_step(params, token, caches, pos, cfg, sched=sched,
                           page_table=page_table, page_size=page_size,
                           t_depth=t_depth, live_plan=live_plan)
+
+
+def greedy_generate(params: lm.LM, prompt: torch.Tensor, cfg: ModelConfig,
+                    steps: int, t_max: int, on_step=None) -> torch.Tensor:
+    """Greedy decoding through the per-layer decode path: prefill
+    ``prompt [B, S]``, feed back the argmax token, and return the
+    ``steps`` tokens the decode steps choose, ``[B, steps]`` of the
+    prompt's dtype (the prefill's own token is fed in, not returned, as
+    the reference).  ``on_step(i, logits)``, when given, sees every decode
+    step's logits.  Raises when the prompt plus ``steps`` does not fit in
+    ``t_max``."""
+    b, s = prompt.shape
+    if s + steps > t_max:
+        raise ValueError(f"prompt of {s} tokens + {steps} decode steps does "
+                         f"not fit in t_max={t_max}")
+    logits, caches = prefill_fn(params, {"tokens": prompt}, cfg, t_max)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(prompt.dtype)
+    out = torch.zeros((b, steps), dtype=prompt.dtype, device=prompt.device)
+    for i in range(steps):
+        logits, caches = decode_fn(params, tok, caches, s + i, cfg)
+        if on_step is not None:
+            on_step(i, logits)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(prompt.dtype)
+        out[:, i:i + 1] = tok
+    return out

@@ -1,5 +1,6 @@
 """Shared model components (port of the parts of ``repro.models.common``
-the dense serving path runs): norms, RoPE, attention for prefill and
+the dense decoder runs): norms, RoPE, attention for prefill, for the
+per-layer cached decode (through the fabric's KV layout engine) and for
 port-major decode, the KV banking relabels, the page-pool plan helpers,
 the MLP, embeddings and logits.
 
@@ -13,13 +14,15 @@ them to XLA too); no fused attention operator is used.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.fabric.fabric import _put_drop, _take_fill, pm_to_banked
+from repro_torch.fabric.fabric import (Fabric, _put_drop, _take_fill,
+                                       pm_to_banked)
 from repro_torch.fabric.scheduler import FRAME_SENTINEL as _SENTINEL
 
 
@@ -165,18 +168,70 @@ def _attn_output(p, out: torch.Tensor) -> torch.Tensor:
 
 
 def attention_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-                    layer_kind: str, kv_chunk: int = 0,
+                    layer_kind: str, cache=None, kv_chunk: int = 0,
                     apply_rope: bool = True, causal: bool = True):
-    """Self-attention over the current sequence (training/prefill).
-    Returns ``(out, {"k", "v"})``, the line-major KV for cache install.
-    The cached per-layer decode branch of the reference (through
-    ``Fabric.kv_port_major``) is ported with the next slice."""
+    """Self-attention with an optional KV cache.
+
+    Training/prefill (``cache`` None): keys from the current sequence;
+    returns ``(out, {"k", "v"})``, the line-major KV for cache install.
+    Decode: ``cache = {"k"/"v": [B, T, Hkv, D] line-major, "pos": scalar or
+    [B]}``; the new token's K/V is written at ``pos`` **in place** (the
+    cache tensors are updated, not copied) and the cache is read through
+    the fabric's KV layout engine (:func:`cached_attention`).  Returns
+    ``(out, {"k", "v", "pos"})``."""
     q, k, v, window = _qkv_project(p, x, cfg, positions=positions,
                                    layer_kind=layer_kind,
                                    apply_rope=apply_rope)
-    out = attention(q, k, v, positions, positions, causal=causal,
-                    window=window, kv_chunk=kv_chunk)
-    return _attn_output(p, out), {"k": k, "v": v}
+    if cache is None:
+        out = attention(q, k, v, positions, positions, causal=causal,
+                        window=window, kv_chunk=kv_chunk)
+        return _attn_output(p, out), {"k": k, "v": v}
+    pos = cache["pos"]
+    ck = _cache_write(cache["k"], k, pos)
+    cv = _cache_write(cache["v"], v, pos)
+    kv_pos = torch.arange(ck.shape[1], device=x.device)
+    valid = (kv_pos <= pos if pos.ndim == 0
+             else kv_pos[None, :] <= pos[:, None])
+    out = cached_attention(q, ck, cv, pos, kv_pos, valid, window, cfg)
+    return _attn_output(p, out), {"k": ck, "v": cv, "pos": pos}
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """Write the new token's K/V ``new [B, 1, Hkv, D]`` at ``pos`` (scalar,
+    or per row ``[B]``) of ``cache [B, T, Hkv, D]``, in place.  The
+    reference's ``dynamic_update_slice`` clamps an out-of-range start; the
+    decode entry point rejects such a position on the host instead."""
+    if pos.ndim == 0:
+        cache[:, pos.long()] = new[:, 0]
+    else:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, pos.long()] = new[:, 0]
+    return cache
+
+
+@functools.lru_cache(maxsize=64)
+def _model_fabric(cfg) -> Fabric:
+    """The model's fabric, built once per config (every K/V leaf of every
+    decode step asks for it)."""
+    return Fabric.for_model(cfg)
+
+
+def _kv_port_major(c: torch.Tensor, cfg) -> torch.Tensor:
+    """``[B, T, Hkv, D]`` line-major → ``[B, Hkv, T, D]`` port-major through
+    the model's fabric (the layout-engine kernel on the medusa fabric)."""
+    return _model_fabric(cfg).kv_port_major(c)
+
+
+def cached_attention(q, ck, cv, pos, kv_pos, valid, window, cfg):
+    """Decode attention over a line-major cache: re-bank K and V to
+    port-major head streams through the model's fabric (one layout-engine
+    launch per leaf on the medusa fabric), then attend.  The reference's
+    ``fused`` fabric contracts the line-major cache directly; it comes with
+    that fabric (``Fabric`` refuses it today)."""
+    return _decode_attention(q, _kv_port_major(ck, cfg),
+                             _kv_port_major(cv, cfg), pos, kv_pos, valid,
+                             window)
 
 
 # ----------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Decoder-only LM (port of ``repro.models.lm`` for full-attention
-blocks): parameters, caches, prefill and the burst-scheduled decode step.
+"""Decoder-only LM (port of ``repro.models.lm`` for full-attention ``A``
+and sliding-window ``L`` blocks): parameters, caches, prefill, the
+per-layer decode step and the burst-scheduled decode step.
 
 Parameters are an :class:`LM` module: one :class:`Block` per layer
 (``LM.unit[i][r]`` is pattern position ``i`` of repetition ``r``, the
@@ -9,14 +10,18 @@ orientation (``x @ w``).  The layer scan is a Python loop.
 
 Caches keep the reference's tree layout, stacked over layers:
 ``{"unit": [{"k": [reps, ...], "v": ...}], "tail": [...]}`` — a paged pool
-leaf is ``[reps, n_pages, page_size, Hkv, D]`` — so the scheduler's
-streams, index tiling and counters match the reference one for one.
+leaf is ``[reps, n_pages, page_size, Hkv, D]``, a sliding-window layer's
+ring ``[reps, B, min(t_max, window), Hkv, D]`` — so the scheduler's
+streams, index tiling and counters match the reference one for one.  The
+decode steps write each new token's K/V into the caches in place (the
+reference returns new arrays); the returned tree holds the same leaves.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -24,9 +29,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
 
-_OTHER_FAMILIES = ("block types other than full attention ('A'), MoE and "
+_OTHER_FAMILIES = ("block types other than attention ('A', 'L'), MoE and "
                    "the other families are ported in later slices (ROADMAP "
-                   "§1 items 1, 2, 6, 7)")
+                   "§1 items 6, 7)")
 
 
 def pattern_unit(cfg: ModelConfig):
@@ -39,7 +44,7 @@ def pattern_unit(cfg: ModelConfig):
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None or cfg.family in ("audio", "ssm", "hybrid") \
             or cfg.n_patches or cfg.encoder_layers \
-            or any(t != "A" for t in cfg.layer_types()):
+            or any(t not in ("A", "L") for t in cfg.layer_types()):
         raise NotImplementedError(_OTHER_FAMILIES)
     if cfg.spec_heads or cfg.serve_fsdp:
         raise NotImplementedError(
@@ -66,7 +71,8 @@ def _norm(cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One full-attention decoder layer: pre-norm attention + MLP."""
+    """One attention decoder layer (``A`` or ``L``; the two have the same
+    parameters): pre-norm attention + MLP."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -125,13 +131,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
 
 
 def _layers(params: LM, cfg: ModelConfig):
-    """``(kind, index, rep, block)`` for every layer in execution order."""
+    """``(type, kind, index, rep, block)`` for every layer in execution
+    order (``rep`` is None for tail layers)."""
     unit, reps, tail = pattern_unit(cfg)
     for r in range(reps):
-        for i in range(len(unit)):
-            yield "unit", i, r, params.unit[i][r]
-    for i in range(len(tail)):
-        yield "tail", i, None, params.tail[i]
+        for i, t in enumerate(unit):
+            yield t, "unit", i, r, params.unit[i][r]
+    for i, t in enumerate(tail):
+        yield t, "tail", i, None, params.tail[i]
+
+
+def _layer_cache(caches, kind: str, i: int, r) -> dict:
+    """One layer's ``{"k", "v"}`` cache: views into the stacked leaves (so
+    in-place writes land in the tree)."""
+    return {name: (leaf[r] if r is not None else leaf)
+            for name, leaf in caches[kind][i].items()}
 
 
 # ----------------------------------------------------------------------------
@@ -143,21 +157,26 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
     """The batched decode-cache tree.  With ``pool_pages > 0`` every
     full-attention leaf is a shared physical page pool ``[pool_pages,
     page_size, Hkv, D]`` (stacked over the unit's repetitions) instead of a
-    dense ``[batch, t_max]`` reservation."""
+    dense ``[batch, t_max]`` reservation.  Sliding-window layers keep a
+    per-slot ring ``[batch, min(t_max, window)]`` either way."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.param_dtype
     hd = cfg.resolved_head_dim
     unit, reps, tail = pattern_unit(cfg)
-    shape = ((pool_pages, page_size, cfg.n_kv_heads, hd) if pool_pages
-             else (batch, t_max, cfg.n_kv_heads, hd))
 
-    def leaf(lead):
+    def leaf(t, lead):
+        if pool_pages and _full_attn(t, cfg):
+            shape = (pool_pages, page_size, cfg.n_kv_heads, hd)
+        else:
+            length = (min(t_max, cfg.sliding_window)
+                      if t == "L" and cfg.sliding_window else t_max)
+            shape = (batch, length, cfg.n_kv_heads, hd)
         return {name: torch.zeros(lead + shape, dtype=dtype, device=dev)
                 for name in ("k", "v")}
 
-    return {"unit": [leaf((reps,)) for _ in (unit if reps > 0 else "")],
-            "tail": [leaf(()) for _ in tail]}
+    return {"unit": [leaf(t, (reps,)) for t in (unit if reps > 0 else "")],
+            "tail": [leaf(t, ()) for t in tail]}
 
 
 def paged_entries(cfg: ModelConfig):
@@ -187,61 +206,187 @@ def _flat_frames(pool: torch.Tensor) -> torch.Tensor:
 # forward
 # ----------------------------------------------------------------------------
 
-def _block_apply(bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
-                 positions, pos=None, kv_chunk: int = 0, pm_cache=None):
-    """One ``A`` layer.  With ``pm_cache`` (decode) attention runs on the
-    layer's port-major cache from the step's read burst and updates it in
-    place; without, it attends over the current sequence (prefill) and
-    returns the new line-major K/V."""
+def _sliding_cache_update(cache_kv: torch.Tensor, k_new: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """Ring write for a sliding-window cache ``[B, W, Hkv, D]``: the new
+    token's K/V lands at slot ``pos % W`` (``pos`` scalar or per row
+    ``[B]``), in place."""
+    return cm._cache_write(cache_kv, k_new, pos % cache_kv.shape[1])
+
+
+def _ring_window(kv: torch.Tensor, length: int) -> torch.Tensor:
+    """Prefill's ring install for a window shorter than the prompt: the last
+    ``length`` positions of ``kv [B, S, Hkv, D]``, rolled so position ``p``
+    sits at slot ``p % length`` (``torch.roll`` moves the way ``jnp.roll``
+    does)."""
+    s = kv.shape[1]
+    return torch.roll(kv[:, s - length:], s % length, dims=1)
+
+
+def _block_apply(t: str, bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
+                 positions, cache=None, pos=None, kv_chunk: int = 0,
+                 pm_cache=None):
+    """One layer of type ``t``.  With ``pm_cache`` (scheduled decode)
+    attention runs on the layer's port-major cache from the step's read
+    burst and updates it in place; with ``cache`` (per-layer decode, and
+    the ring layers of the scheduled step) it writes the new token into the
+    layer's line-major or ring cache in place and attends over it; without
+    either it attends over the current sequence (prefill) and returns the
+    new line-major K/V."""
     h = cm.apply_norm(x, bp.norm1, cfg.norm)
     if pm_cache is not None:
         qpos = pos[None] if pos.ndim == 0 else pos[:, None]
         h, new_kv = cm.attention_apply_banked(
-            bp.attn, h, cfg, positions=qpos, layer_kind="A",
+            bp.attn, h, cfg, positions=qpos, layer_kind=t,
             cache={"k_pm": pm_cache["k_pm"], "v_pm": pm_cache["v_pm"],
                    "pos": pos})
+    elif cache is not None:
+        h, new_kv = _attn_cached(bp.attn, h, cfg, t,
+                                 {"k": cache["k"], "v": cache["v"],
+                                  "pos": pos},
+                                 ring=t == "L" and bool(cfg.sliding_window),
+                                 kv_chunk=kv_chunk)
     else:
         h, new_kv = cm.attention_apply(bp.attn, h, cfg, positions=positions,
-                                       layer_kind="A", kv_chunk=kv_chunk)
+                                       layer_kind=t, kv_chunk=kv_chunk)
     x = x + h
     h = cm.apply_norm(x, bp.norm2, cfg.norm)
     return x + cm.mlp_apply(bp.ffn, h, cfg.mlp), new_kv
 
 
+def _attn_cached(p, x: torch.Tensor, cfg: ModelConfig, layer_kind: str,
+                 cache: dict, ring: bool, kv_chunk: int = 0):
+    """Decode-path attention with a full or a ring (windowed) cache.
+
+    Full: :func:`repro_torch.models.common.attention_apply`'s cached
+    branch.  Ring: slot ``j`` holds absolute position ``pos - ((pos - j) %
+    W)``; at a scalar position the ring goes through ``cached_attention``
+    (port-major, the layout engine), at per-row positions through
+    :func:`_ring_attention_per_row` (line-major).  RoPE uses
+    ``cfg.rope_theta``, as the reference's ring branch does."""
+    pos = cache["pos"]
+    qpos = pos[None] if pos.ndim == 0 else pos[:, None]
+    if not ring:
+        return cm.attention_apply(p, x, cfg, positions=qpos,
+                                  layer_kind=layer_kind, cache=cache,
+                                  kv_chunk=kv_chunk)
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    win = cache["k"].shape[1]
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    q = cm.rope(q, qpos, cfg.rope_theta)
+    k = cm.rope(k, qpos, cfg.rope_theta)
+    ck = _sliding_cache_update(cache["k"], k, pos)
+    cv = _sliding_cache_update(cache["v"], v, pos)
+    slots = torch.arange(win, device=x.device)
+    if pos.ndim == 0:
+        slot_pos = pos - ((pos - slots) % win)   # absolute position per slot
+        valid = (slot_pos >= 0) & (slot_pos <= pos)
+        out = cm.cached_attention(q, ck, cv, pos, slot_pos, valid, 0, cfg)
+    else:
+        slot_pos = pos[:, None] - ((pos[:, None] - slots[None, :]) % win)
+        valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+        out = _ring_attention_per_row(q, ck, cv, valid)
+    y = out.reshape(b, s, h * hd) @ p["wo"]
+    return y, {"k": ck, "v": cv}
+
+
+def _ring_attention_per_row(q, ck, cv, valid):
+    """Ring-cache decode attention with per-row slot positions (serving):
+    ``q [B,1,H,D]`` against the line-major ring ``ck/cv [B,W,Hkv,D]``, the
+    window already enforced by the ring's size, ``valid [B, W]``."""
+    b, sq, h, d = q.shape
+    hkv = ck.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, d) * (d ** -0.5)
+    s = torch.einsum("bqhgd,bthd->bhgqt", qg.to(ck.dtype), ck).float()
+    s = torch.where(valid[:, None, None, None, :], s,
+                    torch.tensor(-1e30, dtype=torch.float32,
+                                 device=s.device))
+    p_attn = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqt,bthd->bqhgd", p_attn.to(cv.dtype), cv)
+    return out.reshape(b, sq, h, d)
+
+
+def _check_positions(pos, caches, cfg: ModelConfig, page_table,
+                     t_depth: int) -> np.ndarray:
+    """The decode positions on the host, checked against the cache depth.
+    A position past the full-attention depth (``t_depth`` under the page
+    pool, else the leaves' time axis) is refused: the reference's
+    ``dynamic_update_slice`` would clamp it onto the last frame, and an
+    index write here would fault.  Ring layers take any position."""
+    host = np.asarray(pos.cpu() if isinstance(pos, torch.Tensor) else pos)
+    if host.ndim > 1:
+        raise ValueError(f"decode position must be a scalar or [B], got "
+                         f"shape {host.shape}")
+    depth = t_depth if page_table is not None else min(
+        (caches[kind][i]["k"].shape[-3] for kind, i in paged_entries(cfg)),
+        default=None)
+    if (host < 0).any() or (depth is not None and (host >= depth).any()):
+        raise ValueError(
+            f"decode position {host.tolist()} is outside the KV cache depth "
+            f"{depth}: size t_max for prompt + generated tokens")
+    return host
+
+
 def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
                 page_table=None, page_size: int = 0, t_depth: int = 0,
                 live_plan=None):
-    """One serving decode step: ``token [B, 1]`` + caches at ``pos`` →
-    ``(logits [B, 1, V], caches)``, through the burst scheduler ``sched``.
+    """One decode step: ``token [B, 1]`` + caches at ``pos`` (scalar, or per
+    slot ``[B]``; a host value or a tensor) → ``(logits [B, 1, V],
+    caches)``.  Positions outside the cache depth raise ``ValueError``.
 
-    Every full-attention leaf's port-major conversion is one shared read
-    burst at the top of the step; attention runs (and writes the new
-    token's K/V) in port-major space; one write burst restores line-major
-    caches at the bottom.  With ``page_table`` the leaves are shared page
-    pools; with ``live_plan`` (the operands of
-    :func:`repro_torch.models.common.page_live_plan`, as tensors) the pool
-    gather is fused into the bursts (sparse-extent streams — the ``live``
-    form), otherwise the burst banks the whole pool and the gather runs
-    after it (the ``phys`` form).  On the fused form the write burst
-    scatters into the pool leaves in place, so the returned caches share
-    storage with ``caches``."""
-    if sched is None:
-        raise NotImplementedError(
-            "the per-layer decode path (cached_attention through "
-            "Fabric.kv_port_major) is ported with the next slice (ROADMAP "
-            "§2 kernel 4); pass a BurstScheduler")
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
+    Without ``sched`` this is the per-layer path: every layer writes the
+    new token's K/V into its line-major (or ring) cache and reads the cache
+    through the fabric's KV layout engine — on the medusa fabric one
+    layout-engine kernel launch per K/V leaf per layer (ring layers at
+    per-row positions attend line-major instead).
+
+    With a ``BurstScheduler`` every full-attention leaf's port-major
+    conversion is one shared read burst at the top of the step; attention
+    runs (and writes the new token's K/V) in port-major space; one write
+    burst restores line-major caches at the bottom; ring layers keep their
+    own caches.  With ``page_table`` the leaves are shared page pools; with
+    ``live_plan`` (the operands of :func:`repro_torch.models.common.
+    page_live_plan`, as tensors) the pool gather is fused into the bursts
+    (sparse-extent streams — the ``live`` form), otherwise the burst banks
+    the whole pool and the gather runs after it (the ``phys`` form).  On
+    the fused form the write burst scatters into the pool leaves in place,
+    so the returned caches share storage with ``caches``."""
+    host = _check_positions(pos, caches, cfg, page_table, t_depth)
+    pos = torch.as_tensor(host, dtype=torch.int32, device=token.device)
     positions = pos[None] if pos.ndim == 0 else pos[:, None]
+    if sched is None:
+        if page_table is not None:
+            raise NotImplementedError(
+                "the per-layer paged decode (_decode_step_paged_fallback) is "
+                "ported in a later slice (ROADMAP §1 item 2); pass a "
+                "BurstScheduler")
+        return _decode_step_layers(params, token, caches, pos, positions, cfg)
     phys = (None if page_table is None
             else cm.page_gather_indices(page_table, page_size, t_depth))
     plan = _burst_plan(cfg, caches)
     if plan is None:
         raise NotImplementedError(
-            "off-geometry fabrics decode through the per-layer path, ported "
-            "with the next slice")
+            "off-geometry fabrics decode through the per-layer paged "
+            "fallback, ported in a later slice (ROADMAP §1 item 2)")
     live = live_plan if phys is not None else None
     return _decode_step_scheduled(params, token, caches, pos, positions, cfg,
                                   sched, plan, phys=phys, live=live)
+
+
+def _decode_step_layers(params: LM, token, caches, pos, positions,
+                        cfg: ModelConfig):
+    """The per-layer decode step (see :func:`decode_step`)."""
+    x = cm.embed_apply(params.embed, token)
+    for t, kind, i, r, block in _layers(params, cfg):
+        x, _ = _block_apply(t, block, x, cfg, positions=positions,
+                            cache=_layer_cache(caches, kind, i, r), pos=pos)
+    x = cm.apply_norm(x, params.final_norm, cfg.norm)
+    return cm.logits_apply(params.embed, x, cfg), caches
 
 
 def _burst_plan(cfg: ModelConfig, caches):
@@ -331,11 +476,16 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
         pm[kind][i] = entry
 
     x = cm.embed_apply(params.embed, token)
-    for kind, i, r, block in _layers(params, cfg):
+    for t, kind, i, r, block in _layers(params, cfg):
         entry = pm[kind][i]
-        layer_pm = ({name: t[r] for name, t in entry.items()}
+        if entry is None:                 # a ring layer: its own cache
+            x, _ = _block_apply(t, block, x, cfg, positions=positions,
+                                cache=_layer_cache(caches, kind, i, r),
+                                pos=pos)
+            continue
+        layer_pm = ({name: leaf[r] for name, leaf in entry.items()}
                     if r is not None else entry)
-        x, _ = _block_apply(block, x, cfg, positions=positions, pos=pos,
+        x, _ = _block_apply(t, block, x, cfg, positions=positions, pos=pos,
                             pm_cache=layer_pm)
 
     # -- burst 2: updated port-major caches → line-major --------------------
@@ -382,17 +532,22 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
 def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig, t_max: int,
             kv_chunk: int = 0):
     """Prefill: the forward pass that also installs line-major KV caches
-    ``[reps, B, t_max, Hkv, D]``.  Returns ``(logits [B, 1, V], caches)``
-    with the logits of the last position."""
+    ``[reps, B, t_max, Hkv, D]``; a ring shorter than the prompt takes its
+    last ``W`` positions, rolled so position ``p`` sits at slot ``p % W``.
+    Returns ``(logits [B, 1, V], caches)`` with the logits of the last
+    position."""
     b, s = tokens.shape
     caches = init_cache(cfg, b, t_max, device=tokens.device)
     x = cm.embed_apply(params.embed, tokens)
     positions = torch.arange(s, device=tokens.device)
-    for kind, i, r, block in _layers(params, cfg):
-        x, kv = _block_apply(block, x, cfg, positions=positions,
+    for t, kind, i, r, block in _layers(params, cfg):
+        x, kv = _block_apply(t, block, x, cfg, positions=positions,
                              kv_chunk=kv_chunk)
-        for name in ("k", "v"):
-            leaf = caches[kind][i][name]
-            (leaf[r] if r is not None else leaf)[:, :s] = kv[name]
+        for name, leaf in _layer_cache(caches, kind, i, r).items():
+            length = leaf.shape[1]
+            if length >= s:
+                leaf[:, :s] = kv[name]
+            else:
+                leaf.copy_(_ring_window(kv[name], length))
     x = cm.apply_norm(x, params.final_norm, cfg.norm)
     return cm.logits_apply(params.embed, x[:, -1:], cfg), caches

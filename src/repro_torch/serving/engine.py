@@ -9,7 +9,11 @@ admission and decode growth and reclaimed at retirement.  Admission
 prefills each request and installs the wave through one write burst.  Each
 decode step runs through a :class:`repro_torch.fabric.BurstScheduler`: one
 read burst banks the KV port-major, attention runs in port-major space,
-one write burst restores line-major.
+one write burst restores line-major.  A sliding-window layer (gemma3's
+``L``) keeps a per-slot ring of its last ``W`` positions on the device
+instead: admission copies the request's ring into its slot's row, the step
+writes and attends it line-major at each slot's own position, and a
+retired slot's row is simply overwritten by the next admission.
 
 Under the fused-gather contract (``fused_gather``, on by default) the step
 plans its live frames on the host (:func:`repro_torch.models.common.
@@ -234,7 +238,7 @@ class ServingEngine:
             return 0
         dev = self.device
         tokens = torch.from_numpy(self.tokens.copy()).to(dev)
-        pos = torch.from_numpy(self.pos.copy()).to(dev)
+        pos = self.pos.copy()                 # checked on the host
         page_table = self.kv.page_table_device(dev)
         live_plan = None
         if self.fused:

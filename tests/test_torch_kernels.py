@@ -139,4 +139,5 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                    torch.arange(4, dtype=torch.int32), 4)
     assert tmt.launch_counts() == {"gather_burst_network_tiles": 0,
                                    "scatter_burst_network_tiles": 0,
-                                   "burst_network_tiles": 0}
+                                   "burst_network_tiles": 0,
+                                   "medusa_transpose_tiles": 0}
