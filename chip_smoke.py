@@ -20,22 +20,36 @@ Phases (any fault exits non-zero):
    version and one PyTorch library call (the yardstick the port never
    calls), CUDA events, median of 30 runs (bursts with a warm L2, the
    layout engine's leaves out of a flushed one);
-4. stablelm — full-width stablelm-1.6b (random bf16 weights from a seed)
+4. interconnect — kernels 5-7 through their ``ops`` entry points
+   (``interconnect_read``, ``rotate_groups``, ``matmul``) at the served
+   models' full widths: the read network and the barrel rotator on
+   stablelm-1.6b's K pool leaf as lines [49152, 32, 64] bf16, the read
+   network on gemma3-4b's [32000, 4, 256]; gemma3-4b's MLP up-projection
+   [6144, 2560] @ [2560, 10240] (prefill of 4 x 1536 tokens) and [4, 2560]
+   @ [2560, 10240] (decode) in bf16, a float32 [1024, 1024]^2 and ragged
+   shapes.  Launch counts reset just before and read just after; then each
+   result held against its plain version (bit for bit; the matmul within
+   the tolerance of :func:`matmul_err`), the edge cases, and the timings
+   beside one PyTorch library call each;
+5. stablelm — full-width stablelm-1.6b (random bf16 weights from a seed)
    through the port's ServingEngine: 4 requests, prompt 448, gen 64, on the
    fused-gather path and on the gather-after-burst path; the kernel launch
    counts must match the steps, and the two token streams must be equal;
-5. gemma3 — full-width gemma3-4b (34 layers, 5:1 sliding-window:global,
+   then on the crossbar fabric (every movement a gather through an index
+   tensor, no Medusa kernel): the same tokens;
+6. gemma3 — full-width gemma3-4b (34 layers, 5:1 sliding-window:global,
    random bf16 weights from a seed), prompt 1536 (past the 1024 window),
    gen 64, batch 4: (a) the one-shot ``greedy_generate`` through the
    per-layer decode path, 68 layout-engine launches per decode step, run
-   again with the kernels off — tokens and every step's logits must be
-   bit-identical; (b) the engine on both decode paths, equal tokens, no
-   layout-engine launch;
-6. card vs CPU — the stablelm and gemma3 smoke configs in float32 agree
+   again with the kernels off and on the crossbar fabric — tokens and
+   every step's logits must be bit-identical; (b) the engine on both decode
+   paths, equal tokens, no layout-engine launch;
+7. card vs CPU — the stablelm and gemma3 smoke configs in float32 agree
    between the card and the CPU within 1e-4 (engine step; gemma3 one-shot);
-7. report — one ``{"kernels": [...]}`` line with an entry per kernel and
-   path (its launches in that path's runs, its times at that path's
-   shapes), the card line again, and the ``{"ok": true, ...}`` line last.
+8. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+   path (its launches in that path's runs, its times and its bound, by
+   bytes or by operations, at that path's shapes), the card line again,
+   and the ``{"ok": true, ...}`` line last.
 
 ``--profile`` adds ``torch.profiler`` censuses (after the launch counts
 are read) of the stablelm engine's fused decode steps and of gemma3-4b's
@@ -50,6 +64,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -58,6 +73,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOP_PER_S = 989.4e12         # dense, tensor cores
+FP32_FLOP_PER_S = 66.9e12          # without the tensor cores
 REPS = 30
 SPIN_CYCLES = 1_000_000            # ~0.5 ms at the H100's clock
 PROFILE_WARM, PROFILE_STEPS = 4, 8     # --profile: warm-up, profiled steps
@@ -76,14 +93,25 @@ KERNELS = {
     "medusa_transpose_tiles": (
         "src/repro_torch/kernels/csrc/medusa_transpose.cu",
         "src/repro/kernels/medusa_transpose.py:72"),
+    "read_network_tiles": (
+        "src/repro_torch/kernels/csrc/read_network.cu",
+        "src/repro/kernels/medusa_transpose.py:111"),
+    "barrel_rotate_groups": (
+        "src/repro_torch/kernels/csrc/barrel_rotate.cu",
+        "src/repro/kernels/rotator.py:23"),
+    "stream_matmul": (
+        "src/repro_torch/kernels/csrc/stream_matmul.cu",
+        "src/repro/kernels/stream_matmul.py:41"),
 }
 # the engine runs: slots (= requests), stablelm-1.6b's prompt; gemma3-4b's
 # serving runs: batch, prompt (past the 1024 window), generated
 ENGINE_SLOTS, STABLELM_PROMPT = 4, 448
 GEMMA_BATCH, GEMMA_PROMPT, GEMMA_GEN = 4, 1536, 64
 # the kernels line's path of the layout engine (the engines' paths are
-# "<arch> engine")
+# "<arch> engine", kernels 5-7's "interconnect: <operand>")
 ONE_SHOT = "gemma3-4b one-shot"
+INTERCONNECT = "interconnect"
+ZERO_LAUNCHES = {name: 0 for name in KERNELS}
 
 
 def fail(msg: str) -> None:
@@ -150,6 +178,26 @@ def words_equal(torch, got, want, what: str) -> int:
     check(got.dtype == want.dtype, f"{what}: {got.dtype} vs {want.dtype}")
     w = view[got.element_size()]
     return bit_equal(torch, got.view(w), want.view(w), what)
+
+
+def set_bound(r: dict) -> None:
+    """The least time the card could take for the row's work: the larger
+    of its bytes (each input read once, each output written once) over the
+    HBM rate and its operations over the peak rate for their type;
+    ``bound_by`` names which."""
+    by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    by_ops = r["flops"] / r["peak"] * 1e3 if r.get("flops") else 0.0
+    r["bound_ms"] = max(by_bytes, by_ops)
+    r["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
+
+
+def print_row(name: str, path: str, r: dict) -> None:
+    work = f"{r['bytes']} bytes" + (f", {r['flops']} flop"
+                                    if r.get("flops") else "")
+    print(f"kernel {name} ({path}): {r['shape']}: {r['ms']:.4f} ms (bound "
+          f"{r['bound_ms']:.4g} ms by {r['bound_by']} for {work}, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)",
+          flush=True)
 
 
 def transpose_rows(torch, dev, gen, words):
@@ -366,11 +414,265 @@ def kernels_phase(torch, dev):
                            for k, r in by.items()]
                           + [(ONE_SHOT, "medusa_transpose_tiles",
                               leaves["A"])]):
-        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        print(f"kernel {name} ({path}): {r['shape']}: {r['ms']:.4f} ms "
-              f"(bound {r['bound_ms']:.4f} ms for {r['bytes']} bytes, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)",
-              flush=True)
+        set_bound(r)
+        print_row(name, path, r)
+    return rows
+
+
+def matmul_err(torch, got, x, w, what: str):
+    """Hold kernel 7's ``got`` against its plain version (the float32
+    product, cast to the operands' dtype).  float32: within rtol 1e-5 and
+    atol 1e-4 * sqrt(K/128).  bf16: within one bf16 ulp of the plain
+    version's cast, or, where a sum lands near zero and the two fp32 sums
+    (tensor-core order vs the plain product's) differ by more than that
+    ulp, within one ulp plus the same atol of the plain version's fp32
+    product.  Returns the largest absolute difference from the plain
+    version, the count of outputs more than one ulp from its cast and the
+    largest excess over one ulp of the fp32 product (bf16 only)."""
+    from repro_torch.kernels import stream_matmul as sm
+
+    want = sm.stream_matmul_plain(x, w)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+          f"{tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0, 0, 0.0
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    atol = 1e-4 * math.sqrt(max(x.shape[1], 1) / 128)
+    diff = (got.float() - want.float()).abs()
+    if x.dtype == torch.float32:
+        worst = float((diff - 1e-5 * want.abs()).max())
+        check(worst <= atol, f"{what}: {worst} beyond rtol 1e-5 + atol "
+              f"{atol}")
+        return float(diff.max()), 0, 0.0
+    mag = want.abs()
+    ulp = (mag.view(torch.int16) + 1).view(torch.bfloat16).float() \
+        - mag.float()
+    near = diff <= ulp
+    excess = (got.float() - torch.matmul(x.float(), w.float())).abs() - ulp
+    ok = near | (excess <= atol)
+    check(bool(ok.all()), f"{what}: {int((~ok).sum())} outputs beyond one "
+          f"bf16 ulp + atol {atol} of the plain version")
+    return float(diff.max()), int((~near).sum()), float(excess.max())
+
+
+def interconnect_phase(torch, dev):
+    """Kernels 5-7, the slice's main path: the three ``ops`` entry points
+    at the full widths of the served models, launch counts reset just
+    before and read just after; then each result held against its plain
+    version, the edge cases, and the timings (kernel, plain version, one
+    library call).  Returns the rows of the kernels line by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rotator as rot
+    from repro_torch.kernels import stream_matmul as sm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def words(shape, dtype=torch.int16):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(dtype)
+
+    def normal(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # stablelm-1.6b's K pool leaf (layers, pages, page slots, KV heads =
+    # N ports, head_dim) viewed as its line stream; gemma3-4b's pool lines
+    slm, gem = get_config("stablelm-1.6b"), get_config("gemma3-4b")
+    n_s, n_g = slm.resolved_fabric.n_ports, gem.resolved_fabric.n_ports
+    k_pool = words((slm.n_layers, 32, 64, n_s, slm.resolved_head_dim)
+                   ).view(torch.bfloat16)
+    lines_s = k_pool.view(-1, n_s, slm.resolved_head_dim)
+    lines_g = words((32000, n_g, gem.resolved_head_dim)).view(torch.bfloat16)
+    amounts = torch.randint(-4 * n_s, 4 * n_s, (lines_s.shape[0],),
+                            generator=gen, device=dev, dtype=torch.int32)
+    d, f = gem.d_model, gem.d_ff
+    w_up = normal((d, f))
+    matmuls = {
+        f"gemma3-4b MLP up-projection, prefill ({GEMMA_BATCH} x "
+        f"{GEMMA_PROMPT} tokens)": (normal((GEMMA_BATCH * GEMMA_PROMPT, d)),
+                                    w_up),
+        f"gemma3-4b MLP up-projection, decode ({GEMMA_BATCH} tokens)": (
+            normal((GEMMA_BATCH, d)), w_up),
+        "float32 square": (normal((1024, 1024), torch.float32),
+                           normal((1024, 1024), torch.float32)),
+        "ragged bf16": (normal((129, 200)), normal((200, 67))),
+        "ragged float32": (normal((129, 200), torch.float32),
+                           normal((200, 67), torch.float32)),
+    }
+    k5_paths = {f"{INTERCONNECT}: stablelm-1.6b K pool": (lines_s, n_s),
+                f"{INTERCONNECT}: gemma3-4b K pool": (lines_g, n_g)}
+    k6_path = f"{INTERCONNECT}: stablelm-1.6b K pool"
+
+    # -- the main path: counts reset just before, read just after ----------
+    outs, launches = {}, {}
+
+    def drive(key, fn):
+        before = mt.launch_counts()
+        outs[key] = fn()
+        after = mt.launch_counts()
+        launches[key] = sum(after[k] - before[k] for k in after)
+
+    torch.cuda.synchronize()
+    mt.reset_launch_counts()
+    for path, (lines, n) in k5_paths.items():
+        drive(("k5", path), lambda: ops.interconnect_read(lines, n))
+    drive(("k6", k6_path), lambda: ops.rotate_groups(lines_s, amounts))
+    for label, (x, w) in matmuls.items():
+        drive(("k7", label), lambda: ops.matmul(x, w))
+    torch.cuda.synchronize()
+    counts = mt.launch_counts()
+    want = {**ZERO_LAUNCHES, "read_network_tiles": len(k5_paths),
+            "barrel_rotate_groups": 1, "stream_matmul": len(matmuls)}
+    check(counts == want, f"interconnect: launches {counts} != {want}")
+    print(f"interconnect: {counts['read_network_tiles']} read-network, "
+          f"{counts['barrel_rotate_groups']} barrel-rotator and "
+          f"{counts['stream_matmul']} matmul launches through ops", flush=True)
+
+    rows = {}
+    # -- kernel 5: bit-equal, timed beside the plain version and the library
+    for path, (lines, n) in k5_paths.items():
+        got = outs[("k5", path)]
+        err = words_equal(torch, got, mt.read_network_plain(lines, n),
+                          f"read network ({path})")
+        g, _, w = lines.shape[0] // n, n, lines.shape[2]
+
+        def library(lines=lines, n=n, g=g, w=w):
+            return lines.view(g, n, n, w).transpose(1, 2).contiguous()
+
+        words_equal(torch, library(), got, "read network library yardstick")
+        rows[path] = {"read_network_tiles": dict(
+            launches=launches[("k5", path)], max_abs_err=err,
+            bytes=2 * lines.numel() * lines.element_size(),
+            ms=time_ms(torch, lambda: mt.read_network_tiles(lines, n)),
+            plain_ms=time_ms(torch, lambda: mt.read_network_plain(lines, n)),
+            library_ms=time_ms(torch, library),
+            shape=f"lines {list(lines.shape)} bf16, N={n}")}
+
+    # -- kernel 6 ----------------------------------------------------------
+    got = outs[("k6", k6_path)]
+    err = words_equal(torch, got, rot.barrel_rotate_plain(lines_s, amounts),
+                      "barrel rotate (stablelm-1.6b lines)")
+    g, n, w = lines_s.shape
+    cols = torch.arange(n, device=dev)
+
+    def rotate_library():
+        idx = (cols + amounts[:, None].long()) % n
+        return torch.gather(lines_s, 1, idx[:, :, None].expand(g, n, w))
+
+    words_equal(torch, rotate_library(), got, "rotate library yardstick")
+    rows[k6_path]["barrel_rotate_groups"] = dict(
+        launches=launches[("k6", k6_path)], max_abs_err=err,
+        bytes=2 * lines_s.numel() * lines_s.element_size() + 4 * g,
+        ms=time_ms(torch, lambda: rot.barrel_rotate_groups(lines_s, amounts)),
+        plain_ms=time_ms(torch, lambda: rot.barrel_rotate_plain(lines_s,
+                                                                amounts)),
+        library_ms=time_ms(torch, rotate_library),
+        shape=f"x {list(lines_s.shape)} bf16, amounts [{g}] int32 in "
+              f"[{-4 * n}, {4 * n})")
+    del got, outs[("k6", k6_path)]
+    for path in k5_paths:
+        del outs[("k5", path)]
+
+    # -- kernel 7: the decode product streams its weight once per step, so
+    #    it is timed out of a flushed L2; the others with a warm one --------
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for label, (x, w) in matmuls.items():
+        got = outs.pop(("k7", label))
+        err, n_far, excess = matmul_err(torch, got, x, w,
+                                        f"matmul ({label})")
+        m, k = x.shape
+        n = w.shape[1]
+        cold = flush if "decode" in label else None
+        rows[f"{INTERCONNECT}: {label}"] = {"stream_matmul": dict(
+            launches=launches[("k7", label)], max_abs_err=err,
+            bytes=(m * k + k * n + m * n) * x.element_size(),
+            flops=2 * m * n * k,
+            peak=FP32_FLOP_PER_S if x.dtype == torch.float32
+            else BF16_FLOP_PER_S,
+            ms=time_ms(torch, lambda: sm.stream_matmul(x, w), flush=cold),
+            plain_ms=time_ms(torch, lambda: sm.stream_matmul_plain(x, w),
+                             flush=cold),
+            library_ms=time_ms(torch, lambda: torch.matmul(x, w),
+                               flush=cold),
+            shape=f"[{m}, {k}] @ [{k}, {n}] "
+                  f"{str(x.dtype).replace('torch.', '')}")}
+        if x.dtype == torch.bfloat16:
+            print(f"matmul ({label}): max abs {err} from the plain version; "
+                  f"{n_far} of {got.numel()} outputs more than one bf16 ulp "
+                  f"from its cast; largest excess over one ulp of its fp32 "
+                  f"product {excess:.3g} (atol "
+                  f"{1e-4 * math.sqrt(k / 128):.3g})", flush=True)
+    del flush, matmuls, w_up, k_pool, lines_g
+
+    # -- edge cases --------------------------------------------------------
+    for dtype, shape, n in ((torch.uint8, (12, 4, 5), 4),
+                            (torch.bfloat16, (16, 8, 3), 8),
+                            (torch.int32, (6, 2, 1), 2),
+                            (torch.int64, (5, 1, 7), 1),
+                            (torch.float32, (64, 32, 3), 32),
+                            (torch.bfloat16, (8, 4, 256), 4)):
+        if dtype == torch.int64:              # two random 32-bit halves
+            x = words(tuple(shape) + (2,), torch.int32).view(torch.int64)[
+                ..., 0]
+        elif dtype == torch.uint8:
+            x = words(shape).to(torch.uint8)
+        elif dtype.is_floating_point:         # NaN payloads and -0.0
+            iw = {2: torch.int16, 4: torch.int32}[dtype.itemsize]
+            x = words(shape, iw)
+            x.view(-1)[:3] = torch.tensor(
+                {2: [0x7FC1, -0x5B, -0x8000],
+                 4: [0x7FC12345, -0x7FFFFF, -2 ** 31]}[dtype.itemsize],
+                dtype=iw)
+            x = x.view(dtype)
+        else:
+            x = words(shape, dtype)
+        what = f"read network edge {dtype} {list(shape)} N={n}"
+        words_equal(torch, ops.interconnect_read(x, n),
+                    mt.read_network_plain(x, n), what)
+        amt = torch.tensor([0, n, -1, n - 1, n + 1, -3 * n - 1, 4 * n,
+                            7, -9, 2 * n, 5, -n][:shape[0]], device=dev)
+        amt = amt.repeat(-(-shape[0] // amt.numel()))[:shape[0]]
+        got = ops.rotate_groups(x, amt)              # int64 amounts
+        words_equal(torch, got, rot.barrel_rotate_plain(x, amt),
+                    what.replace("read network", "rotate"))
+        words_equal(torch, got, torch.stack(
+            [torch.roll(x[i], -int(a), 0) for i, a in enumerate(amt)]),
+            what.replace("read network", "rotate vs roll"))
+    base = words((1 + 8 * 4 * 16,)).view(torch.bfloat16)
+    x = base[1:].view(8, 4, 16)               # 2-byte aligned, not 16
+    words_equal(torch, mt.read_network_tiles(x, 4),
+                mt.read_network_plain(x, 4), "read network unaligned view")
+    a8 = torch.arange(-4, 4, device=dev, dtype=torch.int32)
+    words_equal(torch, rot.barrel_rotate_groups(x, a8),
+                rot.barrel_rotate_plain(x, a8), "rotate unaligned view")
+    for bad in (lambda: mt.read_network_tiles(
+                    torch.zeros((12, 6, 2), device=dev), 6),
+                lambda: rot.barrel_rotate_groups(x, a8[:7]),
+                lambda: sm.stream_matmul(normal((4, 8)),
+                                         normal((8, 4), torch.float32))):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        fail("a kernel wrapper accepted operands its kernel cannot take")
+    for m, k, n, dtype in ((33, 16, 24, torch.bfloat16),
+                           (130, 72, 264, torch.bfloat16),
+                           (70, 33, 65, torch.float32),
+                           (5, 0, 7, torch.bfloat16)):
+        x, w = normal((m, k), dtype), normal((k, n), dtype)
+        matmul_err(torch, sm.stream_matmul(x, w), x, w,
+                   f"matmul edge [{m}, {k}] @ [{k}, {n}] {dtype}")
+    torch.cuda.synchronize()
+    for path, by in rows.items():
+        for name, r in by.items():
+            set_bound(r)
+            print_row(name, path, r)
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -519,15 +821,13 @@ def engine_paths(torch, cfg, params, prompts, rows, leaf_shape, label):
               f"{label}: expected 63 decode steps in 1 wave, got "
               f"{decode_steps} in {waves}")
         if fused:
-            want = {"gather_burst_network_tiles": 2 * decode_steps,
+            want = {**ZERO_LAUNCHES,
+                    "gather_burst_network_tiles": 2 * decode_steps,
                     "scatter_burst_network_tiles": 2 * decode_steps
-                    + 2 * waves,
-                    "burst_network_tiles": 0, "medusa_transpose_tiles": 0}
+                    + 2 * waves}
         else:
-            want = {"gather_burst_network_tiles": 0,
-                    "scatter_burst_network_tiles": 0,
-                    "burst_network_tiles": 2 * decode_steps + waves,
-                    "medusa_transpose_tiles": 0}
+            want = {**ZERO_LAUNCHES,
+                    "burst_network_tiles": 2 * decode_steps + waves}
         check(counts == want,
               f"{label} fused={fused}: launches {counts} != {want}")
         for name, r in rows[f"{label} engine"].items():
@@ -546,13 +846,38 @@ def engine_paths(torch, cfg, params, prompts, rows, leaf_shape, label):
               f"{statistics.median(dec) * 1e3:.3f} ms over {len(dec)} steps; "
               f"admission step {steps[0] * 1e3:.1f} ms; launches {counts}",
               flush=True)
-        runs[fused] = toks
+        runs[fused] = toks, statistics.median(dec)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    check(runs[True] == runs[False],
+    check(runs[True][0] == runs[False][0],
           f"{label}: fused and gather-after-burst paths served different "
           f"tokens")
+    return runs[True]
+
+
+def crossbar_engine(torch, cfg, params, prompts, medusa, label):
+    """Serve ``prompts`` on the fused path of the crossbar fabric (every
+    burst a gather through an index tensor, no Medusa kernel): the tokens
+    must equal the medusa engine's (``medusa``: its tokens and median
+    step)."""
+    from repro_torch.kernels import medusa_transpose as mt
+
+    xcfg = dataclasses.replace(cfg, kv_layout="crossbar")
+    mt.reset_launch_counts()
+    toks, steps, eng = serve(torch, xcfg, params, prompts, True, 64)
+    counts = mt.launch_counts()
+    check(counts == ZERO_LAUNCHES,
+          f"{label} crossbar engine launched Medusa kernels: {counts}")
+    check(eng.fabric.impl == "crossbar", f"{label}: not the crossbar fabric")
+    check(toks == medusa[0], f"{label}: the crossbar engine served other "
+          f"tokens than the medusa engine")
+    print(f"{label} engine crossbar fabric: tokens equal to medusa's; median "
+          f"decode step {statistics.median(steps[1:]) * 1e3:.3f} ms "
+          f"(medusa fused {medusa[1] * 1e3:.3f} ms)", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def stablelm_phase(torch, dev, rows, with_profile: bool):
@@ -568,8 +893,9 @@ def stablelm_phase(torch, dev, rows, with_profile: bool):
     torch.cuda.synchronize()
     print(f"serve: stablelm-1.6b full width ({cfg.param_count()} params, "
           f"bf16) initialised in {time.perf_counter() - t0:.1f}s", flush=True)
-    engine_paths(torch, cfg, params, prompts, rows, (24, 32, 64, 32, 64),
-                 "stablelm-1.6b")
+    medusa = engine_paths(torch, cfg, params, prompts, rows,
+                          (24, 32, 64, 32, 64), "stablelm-1.6b")
+    crossbar_engine(torch, cfg, params, prompts, medusa, "stablelm-1.6b")
     if with_profile:
         profile_serve(torch, cfg, params, prompts)
     del params
@@ -618,8 +944,7 @@ def gemma_phase(torch, dev, rows, with_profile: bool):
     wall = time.perf_counter() - t0
     counts = mt.launch_counts()
     per_step = 2 * cfg.n_layers
-    want = {"gather_burst_network_tiles": 0, "scatter_burst_network_tiles": 0,
-            "burst_network_tiles": 0, "medusa_transpose_tiles": per_step * g}
+    want = {**ZERO_LAUNCHES, "medusa_transpose_tiles": per_step * g}
     check(counts == want, f"gemma3 one-shot: launches {counts} != {want}")
     rows[ONE_SHOT]["medusa_transpose_tiles"]["launches"] = counts[
         "medusa_transpose_tiles"]
@@ -653,7 +978,28 @@ def gemma_phase(torch, dev, rows, with_profile: bool):
     print(f"gemma3-4b one-shot kernels off: tokens and all {g} steps' logits "
           f"bit-identical; median decode step "
           f"{statistics.median(steps_off) * 1e3:.3f} ms", flush=True)
-    del logits, logits_off
+
+    # the crossbar fabric: every layer's K/V read is a gather through an
+    # index tensor, no Medusa kernel; pure movement into the same
+    # contiguous port-major layout, so bit-identical again
+    xcfg = dataclasses.replace(cfg, kv_layout="crossbar")
+    mt.reset_launch_counts()
+    toks_x, logits_x, steps_x = generate(torch, api, params, prompt, xcfg, g,
+                                         s + g)
+    check(mt.launch_counts() == ZERO_LAUNCHES,
+          f"the crossbar one-shot launched Medusa kernels: "
+          f"{mt.launch_counts()}")
+    check(torch.equal(toks, toks_x),
+          "one-shot tokens differ between the medusa and crossbar fabrics")
+    for i, (a, c) in enumerate(zip(logits, logits_x)):
+        check(torch.equal(a.view(torch.int32), c.view(torch.int32)),
+              f"one-shot step {i} logits differ between the medusa and "
+              f"crossbar fabrics (max abs {float((a - c).abs().max())})")
+    print(f"gemma3-4b one-shot crossbar fabric: tokens and all {g} steps' "
+          f"logits bit-identical to medusa's; median decode step "
+          f"{statistics.median(steps_x) * 1e3:.3f} ms (medusa "
+          f"{statistics.median(steps) * 1e3:.3f} ms)", flush=True)
+    del logits, logits_off, logits_x
     gc.collect()
     torch.cuda.empty_cache()
     if with_profile:
@@ -744,6 +1090,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f}s ({build.BUILD_DIR})", flush=True)
 
     rows = kernels_phase(torch, dev)
+    rows.update(interconnect_phase(torch, dev))
     stablelm_phase(torch, dev, rows, args.profile)
     gemma_phase(torch, dev, rows, args.profile)
     card_vs_cpu(torch, dev)
@@ -760,7 +1107,8 @@ def main() -> None:
                          "replaces": replaces, "launches": r["launches"],
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                         "bound_by": "bytes", "library_ms": r["library_ms"],
+                         "bound_by": r["bound_by"],
+                         "library_ms": r["library_ms"],
                          "path": path, "shape": r["shape"]})
     check({e["name"] for e in line} == set(KERNELS),
           "the kernels line misses a kernel")

@@ -1,5 +1,6 @@
 """The ``Fabric``: one object for every memory movement (port of
-``repro.fabric.fabric``, the ``medusa`` and ``oracle`` impls).
+``repro.fabric.fabric``: the ``medusa``, ``crossbar`` and ``oracle``
+impls).
 
 :meth:`Fabric.read`/:meth:`Fabric.write` are the paper's two data-transfer
 networks (§III-A); :meth:`Fabric.read_burst`/:meth:`Fabric.write_burst` are
@@ -10,6 +11,11 @@ fabric with kernels enabled each burst is one kernel launch
 (:mod:`repro_torch.kernels.ops`).  Whether a burst is kernelized depends on
 the config only (impl, N, the kernel switch), never on the device, so CPU
 runs report the same counters as the card.
+
+The ``crossbar`` impl is the paper's traditional interconnect (§II),
+:mod:`repro_torch.core.baseline`: every movement routes through an explicit
+index tensor.  All impls are value-identical.  The ``fused`` impl is not
+ported yet (ROADMAP §1 item 2).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import FabricConfig
+from repro_torch.core import baseline as _b
 from repro_torch.core import transpose as _t
 from repro_torch.kernels import medusa_transpose as mt
 from repro_torch.kernels import ops as kops
@@ -40,10 +47,9 @@ class Fabric:
     config: FabricConfig
 
     def __post_init__(self):
-        if self.config.impl not in ("medusa", "oracle"):
+        if self.config.impl == "fused":
             raise NotImplementedError(
-                f"fabric impl {self.config.impl!r} is not ported yet "
-                f"(ROADMAP §1 item 2: crossbar and fused impls)")
+                "fabric impl 'fused' is not ported yet (ROADMAP §1 item 2)")
 
     @classmethod
     def for_model(cls, cfg) -> "Fabric":
@@ -59,6 +65,11 @@ class Fabric:
         return self.config.impl
 
     @property
+    def latency_cycles(self) -> int:
+        """Constant pipeline latency of the transposition unit (§III-E)."""
+        return _t.transposition_latency_cycles(self.config.n_ports)
+
+    @property
     def banks_kv(self) -> bool:
         """Whether this fabric banks KV traffic through the networks (every
         impl except ``fused``)."""
@@ -71,6 +82,8 @@ class Fabric:
         n = self.config.n_ports
         if self.impl == "medusa":
             return _t.read_network_medusa(lines, n)
+        if self.impl == "crossbar":
+            return _b.read_network_crossbar(lines, n)
         return _t.read_network_oracle(lines, n)
 
     def write(self, banked: torch.Tensor) -> torch.Tensor:
@@ -78,7 +91,26 @@ class Fabric:
         n = self.config.n_ports
         if self.impl == "medusa":
             return _t.write_network_medusa(banked, n)
+        if self.impl == "crossbar":
+            return _b.write_network_crossbar(banked, n)
         return _t.write_network_oracle(banked, n)
+
+    def swap_minor(self, x: torch.Tensor) -> torch.Tensor:
+        """Transpose the two minor axes of ``x`` (rectangular OK) on the
+        selected network: the exchange network on square tiles (medusa),
+        a gather through an explicit index (crossbar), or the plain swap
+        (oracle).  Each returns a contiguous tensor."""
+        if self.impl == "medusa":
+            return _t.medusa_swap_minor(x, tile=self.config.tile)
+        r, c = x.shape[-2], x.shape[-1]
+        if self.impl == "crossbar":
+            lead = tuple(x.shape[:-2])
+            i = torch.arange(c, device=x.device)[:, None]
+            j = torch.arange(r, device=x.device)[None, :]
+            idx = (j * c + i).reshape(-1)
+            return x.reshape(lead + (r * c,)).index_select(-1, idx).reshape(
+                lead + (c, r))
+        return _t.transpose_oracle(x, x.ndim - 2, x.ndim - 1).contiguous()
 
     def kv_port_major(self, c: torch.Tensor) -> torch.Tensor:
         """KV-cache layout engine: line-major ``[B, T, Hkv, D]`` (one
@@ -87,10 +119,16 @@ class Fabric:
         is :func:`repro_torch.kernels.ops.kv_line_to_port`: one
         layout-engine kernel launch for the whole batch (the reference
         vmaps one kernel call over B), or the plain swap with the kernels
-        off; the oracle impl takes the plain swap.  Either way the result
-        is contiguous."""
+        off; the crossbar gathers through an explicit index tensor; the
+        oracle impl takes the plain swap.  Each result is contiguous."""
         if self.impl == "medusa":
             return kops.kv_line_to_port(c)
+        if self.impl == "crossbar":
+            b, t, hkv, d = c.shape
+            idx = (torch.arange(hkv, device=c.device)[:, None]
+                   + torch.arange(t, device=c.device)[None, :] * hkv)
+            return c.reshape(b, t * hkv, d).index_select(
+                1, idx.reshape(-1)).reshape(b, hkv, t, d)
         return mt.medusa_transpose_plain(c)
 
     # -- first-class bursts (the scheduler's hot path) -------------------------
@@ -170,6 +208,17 @@ class Fabric:
         if tile.ndim != 3 or tile.shape[0] != n or tile.shape[1] != n:
             raise ValueError(f"burst tile must be [N, N, W] for N={n}, "
                              f"got {tuple(tile.shape)}")
+
+    # -- data-dependent routing ------------------------------------------------
+    def route(self, data: torch.Tensor, index: torch.Tensor,
+              axis: int = 0) -> torch.Tensor:
+        """Gather ``data`` along ``axis`` through an explicit ``index`` (any
+        shape, entries in ``[0, size)``): the crossbar primitive for
+        data-dependent destinations, identical across impls."""
+        axis %= data.ndim
+        return data.index_select(axis, index.reshape(-1)).reshape(
+            tuple(data.shape[:axis]) + tuple(index.shape)
+            + tuple(data.shape[axis + 1:]))
 
 
 def _take_fill(x: torch.Tensor, idx: torch.Tensor,

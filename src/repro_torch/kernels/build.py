@@ -4,9 +4,10 @@ Each source in ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
 run at first use, all sources at once (one ``nvcc`` per source, started
 together), into the repository's ``build/kernels/`` directory.  A library's
-file name carries a hash of its sources and flags, so an edited source
-rebuilds and an unchanged one loads from the previous build.  Nothing is
-built or loaded when this module is imported.
+file name carries a hash of its source, every shared header in ``csrc/``
+and the flags, so an edited source or header rebuilds and an unchanged one
+loads from the previous build.  Nothing is built or loaded when this module
+is imported.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("gather_burst", "scatter_burst", "burst_network",
-           "medusa_transpose")
+           "medusa_transpose", "read_network", "barrel_rotate",
+           "stream_matmul")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -46,7 +48,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "burst_common.cuh"):
+    for part in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}.{h.hexdigest()[:16]}.so"

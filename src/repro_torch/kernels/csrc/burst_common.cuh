@@ -21,6 +21,12 @@ inline unsigned int grid_for(long long total) {
   return static_cast<unsigned int>(blocks);
 }
 
+// Whether a grid-stride loop over `total` words can keep every index it
+// forms (up to total + one grid's worth of threads) in 32 bits.
+inline bool fits_u32(long long total, unsigned int grid) {
+  return total + static_cast<long long>(grid) * kThreads < (1LL << 32);
+}
+
 }  // namespace medusa
 
 // Instantiate `launch<word_t>(...)` for the word width `word_bytes`;
@@ -31,5 +37,17 @@ inline unsigned int grid_for(long long total) {
     case 2: { using word_t = uint16_t; __VA_ARGS__; break; }          \
     case 4: { using word_t = uint32_t; __VA_ARGS__; break; }          \
     case 8: { using word_t = uint64_t; __VA_ARGS__; break; }          \
+    default: return static_cast<int>(cudaErrorInvalidValue);          \
+  }
+
+// The same over row words, which may be 16 bytes wide (uint4): a wrapper
+// views each payload row as the widest word dividing its bytes.
+#define MEDUSA_DISPATCH_ROW_WORD(word_bytes, ...)                     \
+  switch (word_bytes) {                                               \
+    case 1:  { using word_t = uint8_t;  __VA_ARGS__; break; }         \
+    case 2:  { using word_t = uint16_t; __VA_ARGS__; break; }         \
+    case 4:  { using word_t = uint32_t; __VA_ARGS__; break; }         \
+    case 8:  { using word_t = uint64_t; __VA_ARGS__; break; }         \
+    case 16: { using word_t = uint4;    __VA_ARGS__; break; }         \
     default: return static_cast<int>(cudaErrorInvalidValue);          \
   }

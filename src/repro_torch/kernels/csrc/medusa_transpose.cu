@@ -47,8 +47,7 @@ void launch(const void* in, void* out, long long b, long long r, long long c,
   const long long total = b * r * c * w;
   const unsigned int grid = medusa::grid_for(total);
   // 32-bit indices when every intermediate index fits below 2^32
-  if (total + static_cast<long long>(grid) * medusa::kThreads
-      < (1LL << 32)) {
+  if (medusa::fits_u32(total, grid)) {
     transpose_kernel<T, uint32_t><<<grid, medusa::kThreads, 0, s>>>(
         static_cast<const T*>(in), static_cast<T*>(out),
         static_cast<uint32_t>(r), static_cast<uint32_t>(c),
@@ -70,14 +69,8 @@ extern "C" int medusa_transpose(const void* in, void* out, long long b,
                                 int word_bytes, void* stream) {
   if (b * r * c * w > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (word_bytes) {
-      case 1: launch<uint8_t>(in, out, b, r, c, w, s); break;
-      case 2: launch<uint16_t>(in, out, b, r, c, w, s); break;
-      case 4: launch<uint32_t>(in, out, b, r, c, w, s); break;
-      case 8: launch<uint64_t>(in, out, b, r, c, w, s); break;
-      case 16: launch<uint4>(in, out, b, r, c, w, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    MEDUSA_DISPATCH_ROW_WORD(word_bytes,
+                             launch<word_t>(in, out, b, r, c, w, s));
   }
   return static_cast<int>(cudaGetLastError());
 }

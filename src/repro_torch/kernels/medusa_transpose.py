@@ -1,6 +1,6 @@
 """The Medusa kernels on Hopper, with their plain PyTorch versions.
 
-Four CUDA kernels (sources in ``csrc/``) replace the Pallas kernels of
+Five CUDA kernels (sources in ``csrc/``) replace the Pallas kernels of
 ``repro.kernels.medusa_transpose``:
 
 * :func:`gather_burst_network_tiles` — fused page-table gather + read
@@ -11,7 +11,10 @@ Four CUDA kernels (sources in ``csrc/``) replace the Pallas kernels of
   involution serving both directions (``csrc/burst_network.cu``);
 * :func:`medusa_transpose_tiles` — the KV-cache layout engine, ``[B, R, C,
   W] → [B, C, R, W]`` (``csrc/medusa_transpose.cu``), on the per-layer
-  decode path.
+  decode path;
+* :func:`read_network_tiles` — the read network on group tiles, line
+  stream ``[L, N, W]`` → banked ``[L/N, N, N, W]`` (``csrc/read_network.cu``),
+  behind ``ops.interconnect_read``.
 
 Each wrapper takes its plain version (``*_plain``, index / where / permute
 on tensors) for a tensor on the CPU, launches its kernel for a CUDA tensor,
@@ -20,7 +23,8 @@ kernel to the plain version.  The kernels move machine words: a payload of
 any dtype is viewed as the unsigned word of its width (1, 2, 4 or 8 bytes),
 so one instance per width serves every dtype.
 
-Each kernel keeps a launch count (:func:`launch_counts`), incremented where
+Each kernel keeps a launch count (:func:`launch_counts`, kept for every
+kernel of the port in :mod:`repro_torch.kernels.launch`), incremented where
 the kernel is launched and nowhere else, so a run can show that its path
 went through the kernels.
 """
@@ -28,52 +32,14 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
-from repro_torch.core.transpose import read_network_oracle
-from repro_torch.kernels import build
-
-_WORD_BYTES = (1, 2, 4, 8)
-
-_launches: Dict[str, int] = {"gather_burst_network_tiles": 0,
-                             "scatter_burst_network_tiles": 0,
-                             "burst_network_tiles": 0,
-                             "medusa_transpose_tiles": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
-
-
-def _word_bytes(t: torch.Tensor, what: str) -> int:
-    size = t.element_size()
-    if size not in _WORD_BYTES:
-        raise TypeError(f"{what}: {t.dtype} has a {size}-byte element; the "
-                        f"burst kernels move 1, 2, 4 or 8-byte words")
-    return size
-
-
-def _check_cuda(what: str, **tensors: torch.Tensor) -> None:
-    dev = None
-    for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{what}: {name} is on {t.device}, not a CUDA "
-                             f"device")
-        if dev is not None and t.device != dev:
-            raise ValueError(f"{what}: operands on different devices "
-                             f"({dev} and {t.device})")
-        dev = t.device
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-
+from repro_torch.core.transpose import (_check_line_stream, _num_stages,
+                                        read_network_oracle)
+from repro_torch.kernels import launch as kl
+from repro_torch.kernels.launch import (launch_counts,  # noqa: F401
+                                        reset_launch_counts)
 
 # C signatures: (src, idx, dst, n_lines, N, count, W, word_bytes, stream)
 # for the sparse kernels, (src, dst, N, W, word_bytes, stream) for the dense
@@ -82,32 +48,6 @@ _SPARSE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _DENSE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-
-
-_BOUND: Dict[str, object] = {}
-
-
-def _bind(source: str, symbol: str, argtypes):
-    """The C entry point ``symbol`` of the library built from ``source``,
-    with its argument and return types declared (bound once per
-    process)."""
-    fn = _BOUND.get(symbol)
-    if fn is None:
-        fn = getattr(build.load(source), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _BOUND[symbol] = fn
-    return fn
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with "
-                           f"cudaError {err}")
 
 
 def _check_idx(idx: torch.Tensor, what: str) -> None:
@@ -147,16 +87,16 @@ def gather_burst_network_tiles(lines: torch.Tensor, idx: torch.Tensor,
     _check_idx(idx, "gather_burst_network_tiles")
     if lines.device.type == "cpu" and idx.device.type == "cpu":
         return gather_burst_plain(lines, idx, n)
-    _check_cuda("gather_burst_network_tiles", lines=lines, idx=idx)
-    wb = _word_bytes(lines, "gather_burst_network_tiles")
+    kl.check_cuda("gather_burst_network_tiles", lines=lines, idx=idx)
+    wb = kl.word_bytes(lines, "gather_burst_network_tiles")
     l, _, w = lines.shape
     k = idx.shape[0]
     out = torch.empty((k // n, n, n, w), dtype=lines.dtype,
                       device=lines.device)
-    fn = _bind("gather_burst", "medusa_gather_burst", _SPARSE_ARGS)
-    _launches["gather_burst_network_tiles"] += 1
-    _raise_on(fn(lines.data_ptr(), idx.data_ptr(), out.data_ptr(), l, n, k, w,
-                 wb, _stream(lines)), "gather_burst_network_tiles")
+    fn = kl.bind("gather_burst", "medusa_gather_burst", _SPARSE_ARGS)
+    kl.count("gather_burst_network_tiles")
+    kl.raise_on(fn(lines.data_ptr(), idx.data_ptr(), out.data_ptr(), l, n, k, w,
+                 wb, kl.stream(lines)), "gather_burst_network_tiles")
     return out
 
 
@@ -201,13 +141,13 @@ def scatter_burst_network_tiles(banked: torch.Tensor, idx: torch.Tensor,
     _check_idx(idx, "scatter_burst_network_tiles")
     if all(t.device.type == "cpu" for t in (banked, idx, into)):
         return scatter_burst_plain(banked, idx, into, n)
-    _check_cuda("scatter_burst_network_tiles", banked=banked, idx=idx,
+    kl.check_cuda("scatter_burst_network_tiles", banked=banked, idx=idx,
                 into=into)
-    wb = _word_bytes(banked, "scatter_burst_network_tiles")
-    fn = _bind("scatter_burst", "medusa_scatter_burst", _SPARSE_ARGS)
-    _launches["scatter_burst_network_tiles"] += 1
-    _raise_on(fn(banked.data_ptr(), idx.data_ptr(), into.data_ptr(),
-                 into.shape[0], n, g, w, wb, _stream(banked)),
+    wb = kl.word_bytes(banked, "scatter_burst_network_tiles")
+    fn = kl.bind("scatter_burst", "medusa_scatter_burst", _SPARSE_ARGS)
+    kl.count("scatter_burst_network_tiles")
+    kl.raise_on(fn(banked.data_ptr(), idx.data_ptr(), into.data_ptr(),
+                 into.shape[0], n, g, w, wb, kl.stream(banked)),
               "scatter_burst_network_tiles")
     return into
 
@@ -230,13 +170,13 @@ def burst_network_tiles(tile: torch.Tensor, n_ports: int) -> torch.Tensor:
         raise ValueError(f"bad burst tile {tuple(tile.shape)} for N={n}")
     if tile.device.type == "cpu":
         return burst_network_plain(tile, n)
-    _check_cuda("burst_network_tiles", tile=tile)
-    wb = _word_bytes(tile, "burst_network_tiles")
+    kl.check_cuda("burst_network_tiles", tile=tile)
+    wb = kl.word_bytes(tile, "burst_network_tiles")
     out = torch.empty_like(tile)
-    fn = _bind("burst_network", "medusa_burst_network", _DENSE_ARGS)
-    _launches["burst_network_tiles"] += 1
-    _raise_on(fn(tile.data_ptr(), out.data_ptr(), n, tile.shape[2], wb,
-                 _stream(tile)), "burst_network_tiles")
+    fn = kl.bind("burst_network", "medusa_burst_network", _DENSE_ARGS)
+    kl.count("burst_network_tiles")
+    kl.raise_on(fn(tile.data_ptr(), out.data_ptr(), n, tile.shape[2], wb,
+                 kl.stream(tile)), "burst_network_tiles")
     return out
 
 
@@ -255,17 +195,6 @@ def medusa_transpose_plain(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-3, -2).contiguous()
 
 
-def _row_word(t: torch.Tensor, out: torch.Tensor) -> int:
-    """The widest machine word (16, 8, 4, 2 or 1 bytes) that divides a
-    payload row's bytes and both buffers' alignment."""
-    row = t.shape[-1] * t.element_size()
-    for wb in (16, 8, 4, 2, 1):
-        if row % wb == 0 and t.data_ptr() % wb == 0 \
-                and out.data_ptr() % wb == 0:
-            return wb
-    return 1
-
-
 def medusa_transpose_tiles(x: torch.Tensor) -> torch.Tensor:
     """Transpose the two leading axes of ``x [R, C, W]`` → ``[C, R, W]``,
     or of every batch row of ``x [B, R, C, W]`` → ``[B, C, R, W]`` in one
@@ -278,15 +207,56 @@ def medusa_transpose_tiles(x: torch.Tensor) -> torch.Tensor:
     r, c = x.shape[-3], x.shape[-2]
     if x.device.type == "cpu":
         return medusa_transpose_plain(x)
-    _check_cuda("medusa_transpose_tiles", x=x)
-    _word_bytes(x, "medusa_transpose_tiles")
+    kl.check_cuda("medusa_transpose_tiles", x=x)
+    kl.word_bytes(x, "medusa_transpose_tiles")
     out = torch.empty(x.shape[:-3] + (c, r, x.shape[-1]), dtype=x.dtype,
                       device=x.device)
-    wb = _row_word(x, out)
+    wb = kl.row_word(x, out)
     b = x.shape[0] if x.ndim == 4 else 1
-    fn = _bind("medusa_transpose", "medusa_transpose", _TRANSPOSE_ARGS)
-    _launches["medusa_transpose_tiles"] += 1
-    _raise_on(fn(x.data_ptr(), out.data_ptr(), b, r, c,
-                 x.shape[-1] * x.element_size() // wb, wb, _stream(x)),
+    fn = kl.bind("medusa_transpose", "medusa_transpose", _TRANSPOSE_ARGS)
+    kl.count("medusa_transpose_tiles")
+    kl.raise_on(fn(x.data_ptr(), out.data_ptr(), b, r, c,
+                 x.shape[-1] * x.element_size() // wb, wb, kl.stream(x)),
               "medusa_transpose_tiles")
+    return out
+
+
+# ----------------------------------------------------------------------------
+# 5. the read network on group tiles
+# ----------------------------------------------------------------------------
+
+_READ_NETWORK_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_void_p]
+
+
+def read_network_plain(lines: torch.Tensor, n_ports: int) -> torch.Tensor:
+    """Plain version: the read network oracle, made contiguous as the
+    kernel's output is (strides decide how later ops round)."""
+    return read_network_oracle(lines, n_ports).contiguous()
+
+
+def read_network_tiles(lines: torch.Tensor, n_ports: int) -> torch.Tensor:
+    """Read network on group tiles: line stream ``lines [L, N, W]`` (L a
+    multiple of N, N a power of two) → banked ``[L/N, N, N, W]`` with
+    ``banked[g, y, p] = lines[g*N + p, y]``, one launch.  Returns a
+    contiguous tensor of ``lines``' dtype."""
+    n = n_ports
+    if lines.ndim != 3:
+        raise ValueError(f"bad line stream {tuple(lines.shape)} for N={n}")
+    _check_line_stream(lines, n)
+    log_n = _num_stages(n)
+    if lines.device.type == "cpu":
+        return read_network_plain(lines, n)
+    kl.check_cuda("read_network_tiles", lines=lines)
+    kl.word_bytes(lines, "read_network_tiles")
+    l, _, w = lines.shape
+    out = torch.empty((l // n, n, n, w), dtype=lines.dtype,
+                      device=lines.device)
+    wb = kl.row_word(lines, out)
+    fn = kl.bind("read_network", "medusa_read_network", _READ_NETWORK_ARGS)
+    kl.count("read_network_tiles")
+    kl.raise_on(fn(lines.data_ptr(), out.data_ptr(), l // n, log_n,
+                   w * lines.element_size() // wb, wb, kl.stream(lines)),
+                "read_network_tiles")
     return out

@@ -1,12 +1,14 @@
-"""Dispatch for the Medusa kernels (port of ``repro.kernels.ops``: the
-three burst ops of the serving path and the KV-cache layout engine).
+"""Dispatch for the Medusa kernels (port of ``repro.kernels.ops``): the
+three burst ops of the serving path, the KV-cache layout engine, the read
+network on group tiles, the barrel rotator and the streaming matmul.
 
-With kernels enabled (the default) each op calls its kernel wrapper in
-:mod:`repro_torch.kernels.medusa_transpose`, which launches the CUDA kernel
-for a CUDA tensor, takes the plain version for a CPU tensor, and raises on
-anything else.  ``use_kernels(False)`` routes every op to the unrolled
-oracles instead, on any device — the kernels-off arm, a caller's explicit
-choice, never a fallback.  The switch is this function only; no environment
+With kernels enabled (the default) each op calls its kernel wrapper
+(:mod:`repro_torch.kernels.medusa_transpose`, ``rotator``,
+``stream_matmul``), which launches the CUDA kernel for a CUDA tensor,
+takes the plain version for a CPU tensor, and raises on anything else.
+``use_kernels(False)`` routes every op to the unrolled oracles instead, on
+any device — the kernels-off arm, a caller's explicit choice, never a
+fallback.  The switch is this function only; no environment
 variable reads it.
 """
 
@@ -17,12 +19,16 @@ import torch
 from repro_torch.core.transpose import (read_network_oracle,
                                         write_network_oracle)
 from repro_torch.kernels import medusa_transpose as mt
+from repro_torch.kernels import ref
+from repro_torch.kernels.rotator import (barrel_rotate_groups,
+                                         rotate_operands)
+from repro_torch.kernels.stream_matmul import stream_matmul
 
 _USE_KERNELS = True
 
 
 def use_kernels(enabled: bool) -> None:
-    """Route the burst ops to the kernels (True) or the oracles (False)."""
+    """Route the ops to the kernels (True) or the oracles (False)."""
     global _USE_KERNELS
     _USE_KERNELS = bool(enabled)
 
@@ -48,6 +54,16 @@ def kv_line_to_port(kv: torch.Tensor) -> torch.Tensor:
     wide line across heads) → port-major ``[H, T, D]`` (one stream per
     head); ``[B, T, H, D]`` → ``[B, H, T, D]`` in one launch."""
     return transpose_rc(kv)
+
+
+def interconnect_read(lines: torch.Tensor, n_ports: int) -> torch.Tensor:
+    """The read network on group tiles: line stream ``[L, N, W]`` → banked
+    ``[L/N, N, N, W]`` in one launch (kernel form of
+    ``core.transpose.read_network_medusa``).  Kernels off: the oracle, made
+    contiguous as the kernel's result is."""
+    if not _USE_KERNELS:
+        return mt.read_network_plain(lines, n_ports)
+    return mt.read_network_tiles(lines, n_ports)
 
 
 def burst_read(tile: torch.Tensor, n_ports: int) -> torch.Tensor:
@@ -84,3 +100,23 @@ def burst_scatter_write(banked: torch.Tensor, idx: torch.Tensor,
     if not _USE_KERNELS:
         return mt.scatter_burst_plain(banked, idx, into, n_ports)
     return mt.scatter_burst_network_tiles(banked, idx, into, n_ports)
+
+
+def rotate_groups(x: torch.Tensor, amounts: torch.Tensor) -> torch.Tensor:
+    """Barrel-rotate each ``x[g] [N, W]`` left by ``amounts[g]`` (mod N)
+    in one launch.  Kernels off: the reference's oracle, one roll per
+    group."""
+    if not _USE_KERNELS:
+        amounts = rotate_operands(x, amounts)
+        return torch.stack([ref.rotate_ref(xg, a)
+                            for xg, a in zip(x, amounts.tolist())])
+    return barrel_rotate_groups(x, amounts)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [M, K] @ w [K, N]`` with a float32 accumulator, cast to
+    ``x.dtype`` (both bf16 or both float32): one launch of the streaming
+    matmul for any M, N, K.  Kernels off: the oracle."""
+    if not _USE_KERNELS:
+        return ref.matmul_ref(x, w)
+    return stream_matmul(x, w)

@@ -3,7 +3,10 @@
 
 Runs on the CUDA device (``--device cpu`` runs the plain kernel versions
 on the CPU) with random weights drawn from ``--seed`` and synthetic
-prompts.  Two modes, as the reference's:
+prompts.  ``--fabric-impl`` picks the KV fabric (``medusa``, the default;
+the ``crossbar`` baseline, which routes every movement through an index
+tensor and launches no Medusa kernel; or the ``oracle`` permute) in either
+mode.  Two modes, as the reference's:
 
 * one-shot (default): ``api.greedy_generate`` over the batch through the
   per-layer decode path, which reads every layer's K/V through the fabric's
@@ -51,6 +54,11 @@ def main(argv=None):
     ap.add_argument("--engine", action="store_true",
                     help="serve through the paged continuous-batching engine "
                          "(default: one-shot batch generate)")
+    ap.add_argument("--kv-layout", "--fabric-impl", dest="kv_layout",
+                    default=None,
+                    choices=["medusa", "crossbar", "oracle", "fused"],
+                    help="the KV fabric's network (default: the config's, "
+                         "medusa); 'fused' is not ported yet")
     ap.add_argument("--page-size", type=int, default=0,
                     help="KV page size in timesteps (0 = fabric default)")
     ap.add_argument("--pool-pages", type=int, default=0,
@@ -62,6 +70,9 @@ def main(argv=None):
                          "bursts (default on); --no-fused-gather banks the "
                          "whole pool and gathers after the burst")
     args = ap.parse_args(argv)
+    if args.kv_layout == "fused":
+        ap.error("--fabric-impl fused is not ported yet (ROADMAP §1 item "
+                 "2); choose medusa, crossbar or oracle")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # float32 products in full precision, as the reference
@@ -69,6 +80,12 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.kv_layout:
+        cfg = dataclasses.replace(cfg, kv_layout=args.kv_layout)
+        if cfg.fabric is not None:   # explicit fabric: keep the switch single
+            cfg = dataclasses.replace(
+                cfg, fabric=dataclasses.replace(cfg.fabric,
+                                                impl=args.kv_layout))
     if args.page_size:
         cfg = dataclasses.replace(
             cfg, fabric=dataclasses.replace(cfg.resolved_fabric,

@@ -140,4 +140,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert tmt.launch_counts() == {"gather_burst_network_tiles": 0,
                                    "scatter_burst_network_tiles": 0,
                                    "burst_network_tiles": 0,
-                                   "medusa_transpose_tiles": 0}
+                                   "medusa_transpose_tiles": 0,
+                                   "read_network_tiles": 0,
+                                   "barrel_rotate_groups": 0,
+                                   "stream_matmul": 0}
