@@ -9,14 +9,17 @@ Phases (any fault exits non-zero):
 
 1. device — print ``nvidia-smi``'s name and power limit; no CUDA, no run;
 2. build  — compile the port's CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` (one ``nvcc`` per source, in parallel);
+   csrc`` (one ``nvcc`` per source, in parallel), and print the registers
+   and spills ``-Xptxas -v`` reports for the matmul's and the dense
+   burst's kernels;
 3. kernels — hold each kernel bit for bit against its plain PyTorch version
    on the card, at each serving path's shapes (the stablelm-1.6b engine's
    bursts: N=32 ports, W=32 32-bit words, 24 layers of a 2048-frame pool;
    the gemma3-4b engine's: N=4, W=128, 5 layers of a 6400-frame pool; the
    gemma3-4b one-shot's layout engine: K/V leaves [4, 1600, 4, 256] and
    [4, 1024, 4, 256] bf16) and at edge cases (sentinels, 8/16/64-bit words,
-   ragged R and C, W=1, NaN payloads and -0.0); then time kernel, plain
+   ragged R and C, W=1, NaN payloads and -0.0, the dense burst applied
+   twice, at an odd W and off 16-byte alignment); then time kernel, plain
    version and one PyTorch library call (the yardstick the port never
    calls), CUDA events, median of 30 runs (bursts with a warm L2, the
    layout engine's leaves out of a flushed one);
@@ -29,8 +32,10 @@ Phases (any fault exits non-zero):
    @ [2560, 10240] (decode) in bf16, a float32 [1024, 1024]^2 and ragged
    shapes.  Launch counts reset just before and read just after; then each
    result held against its plain version (bit for bit; the matmul within
-   the tolerance of :func:`matmul_err`), the edge cases, and the timings
-   beside one PyTorch library call each;
+   the tolerance of :func:`matmul_err`, each timed product through the
+   route it must take, and launched again for the same bits), the edge
+   cases (every matmul route at :func:`matmul_edges`' shapes), and the
+   timings beside one PyTorch library call each;
 5. stablelm — full-width stablelm-1.6b (random bf16 weights from a seed)
    through the port's ServingEngine: 4 requests, prompt 448, gen 64, on the
    fused-gather path and on the gather-after-burst path; the kernel launch
@@ -48,8 +53,9 @@ Phases (any fault exits non-zero):
    between the card and the CPU within 1e-4 (engine step; gemma3 one-shot);
 8. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
-   bytes or by operations, at that path's shapes), the card line again,
-   and the ``{"ok": true, ...}`` line last.
+   bytes or by operations, at that path's shapes; a matmul's entry also
+   names its route), the card line again, and the ``{"ok": true, ...}``
+   line last.
 
 ``--profile`` adds ``torch.profiler`` censuses (after the launch counts
 are read) of the stablelm engine's fused decode steps and of gemma3-4b's
@@ -132,7 +138,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = REPS, flush=None) -> float:
+def time_ms(torch, fn, reps: int = REPS, flush=None,
+            read_flush: bool = False) -> float:
     """Median device time of ``fn()`` over ``reps`` runs (CUDA events),
     after two warm-up calls.  Before each run the device spins for about
     half a millisecond (``torch.cuda._sleep``), so the host has enqueued
@@ -140,14 +147,19 @@ def time_ms(torch, fn, reps: int = REPS, flush=None) -> float:
     reaches them: the span is device time, not the host's launch overhead.
     With ``flush`` (a buffer larger than the 50 MB L2) the buffer is
     rewritten first, so ``fn`` finds its operands in device memory as a
-    cold caller would."""
+    cold caller would, and the L2 full of dirty lines; with ``read_flush``
+    the buffer is only read (summed), which leaves the L2 full of clean
+    lines instead."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            if read_flush:
+                flush.sum()
+            else:
+                flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -194,7 +206,8 @@ def set_bound(r: dict) -> None:
 def print_row(name: str, path: str, r: dict) -> None:
     work = f"{r['bytes']} bytes" + (f", {r['flops']} flop"
                                     if r.get("flops") else "")
-    print(f"kernel {name} ({path}): {r['shape']}: {r['ms']:.4f} ms (bound "
+    via = f" via {r['matmul_route']}" if "matmul_route" in r else ""
+    print(f"kernel {name} ({path}){via}: {r['shape']}: {r['ms']:.4f} ms (bound "
           f"{r['bound_ms']:.4g} ms by {r['bound_by']} for {work}, plain "
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)",
           flush=True)
@@ -402,8 +415,22 @@ def kernels_phase(torch, dev):
         check(torch.equal(a[untouched], lines_e[untouched]),
               f"scatter edge {what}: untouched rows moved")
         tile_e = words((n_e, n_e, w_e), dtype)
-        bit_equal(torch, mt.burst_network_tiles(tile_e, n_e),
-                  mt.burst_network_plain(tile_e, n_e), f"burst edge {what}")
+        got_e = mt.burst_network_tiles(tile_e, n_e)
+        bit_equal(torch, got_e, mt.burst_network_plain(tile_e, n_e),
+                  f"burst edge {what}")
+        bit_equal(torch, mt.burst_network_tiles(got_e, n_e), tile_e,
+                  f"burst edge {what} applied twice")
+    # kernel 3 at an odd word count and off 16-byte alignment (the row copy
+    # then moves narrower words)
+    for what, tile_e in (
+            ("odd W", words((32, 32, 4099))),
+            ("unaligned view", words((1 + 4 * 4 * 24,))[1:].view(4, 4, 24))):
+        got_e = mt.burst_network_tiles(tile_e, tile_e.shape[0])
+        bit_equal(torch, got_e, mt.burst_network_plain(tile_e,
+                                                       tile_e.shape[0]),
+                  f"burst edge {what}")
+        bit_equal(torch, mt.burst_network_tiles(got_e, tile_e.shape[0]),
+                  tile_e, f"burst edge {what} applied twice")
 
     # -- the KV layout engine: the kernels line carries the ring leaf (58 of
     #    the 68 launches per step), the full-attention leaf is printed ------
@@ -456,6 +483,52 @@ def matmul_err(torch, got, x, w, what: str):
     return float(diff.max()), int((~near).sum()), float(excess.max())
 
 
+def matmul_edges(torch, normal) -> None:
+    """Kernel 7's routes at their edges: M in {1, 4, 16, 17, 64, 65, 129,
+    257, 300} (both sides of the small-M threshold and of the 64-row
+    warpgroup and 128-row block tiles; one, two and three 128-row tiles,
+    so that the second block of the wgmma route's last pair of M tiles
+    lies wholly past M at 17-65 and at 257 and 300), N != K, K
+    below one stage, K past the small-M kernel's x chunk, K = 0, M and N
+    ragged past the block tile, N and K off multiples of 8 and views off
+    16-byte alignment.  Each product within :func:`matmul_err` of the plain
+    version and bit-identical across two launches; every route taken."""
+    from repro_torch.kernels import stream_matmul as sm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(m, k, n, dt) for m in (1, 4, 16, 17, 64, 65, 129, 257, 300)
+             for k, n, dt in ((40, 264, bf16), (520, 72, bf16),
+                              (24, 67, f32), (1040, 136, f32))]
+    # the small-M kernel refills x's rows past 1024 K rows of a block
+    cases += [(4, 2600, 264, bf16), (16, 4104, 72, bf16)]
+    cases += [(33, 16, 24, bf16), (130, 72, 264, bf16), (70, 33, 65, f32),
+              (129, 200, 67, bf16), (64, 36, 128, bf16), (5, 0, 7, bf16),
+              (5, 0, 8, bf16), (20, 0, 16, bf16), (4, 0, 12, f32)]
+    operands = [(normal((m, k), dt), normal((k, n), dt))
+                for m, k, n, dt in cases]
+    # views 2 bytes off 16-byte alignment, x's and then w's
+    base = normal((1 + 64 * 72,))
+    operands += [(base[1:].view(64, 72), normal((72, 128))),
+                 (normal((4, 64)), base[1:1 + 64 * 64].view(64, 64))]
+    seen: dict = {}
+    for x, w in operands:
+        m, k = x.shape
+        n = w.shape[1]
+        r = sm.route(m, n, k, x.dtype, x.data_ptr(), w.data_ptr())
+        what = (f"matmul edge [{m}, {k}] @ [{k}, {n}] "
+                f"{str(x.dtype).replace('torch.', '')} ({r})")
+        got = sm.stream_matmul(x, w)
+        again = sm.stream_matmul(x, w)
+        words_equal(torch, again, got, what + " launched twice")
+        matmul_err(torch, got, x, w, what)
+        seen[r] = seen.get(r, 0) + 1
+    check(set(seen) == set(sm.ROUTES),
+          f"matmul edges took routes {seen}, not all of {set(sm.ROUTES)}")
+    print(f"matmul edges: {len(operands)} products by route {seen}, each "
+          f"within matmul_err of the plain version and bit-identical across "
+          f"two launches", flush=True)
+
+
 def interconnect_phase(torch, dev):
     """Kernels 5-7, the slice's main path: the three ``ops`` entry points
     at the full widths of the served models, launch counts reset just
@@ -503,6 +576,9 @@ def interconnect_phase(torch, dev):
         "ragged float32": (normal((129, 200), torch.float32),
                            normal((200, 67), torch.float32)),
     }
+    # the kernel each must go through (stream_matmul.route)
+    want_route = dict(zip(matmuls, ("wgmma", "small_m", "fma", "mma_sync",
+                                    "fma")))
     k5_paths = {f"{INTERCONNECT}: stablelm-1.6b K pool": (lines_s, n_s),
                 f"{INTERCONNECT}: gemma3-4b K pool": (lines_g, n_g)}
     k6_path = f"{INTERCONNECT}: stablelm-1.6b K pool"
@@ -586,9 +662,15 @@ def interconnect_phase(torch, dev):
                                         f"matmul ({label})")
         m, k = x.shape
         n = w.shape[1]
+        r = sm.route(m, n, k, x.dtype, x.data_ptr(), w.data_ptr())
+        check(r == want_route[label],
+              f"matmul ({label}) took the {r} route, not {want_route[label]}")
+        words_equal(torch, sm.stream_matmul(x, w), got,
+                    f"matmul ({label}) launched again")
         cold = flush if "decode" in label else None
         rows[f"{INTERCONNECT}: {label}"] = {"stream_matmul": dict(
             launches=launches[("k7", label)], max_abs_err=err,
+            matmul_route=r,
             bytes=(m * k + k * n + m * n) * x.element_size(),
             flops=2 * m * n * k,
             peak=FP32_FLOP_PER_S if x.dtype == torch.float32
@@ -600,6 +682,21 @@ def interconnect_phase(torch, dev):
                                flush=cold),
             shape=f"[{m}, {k}] @ [{k}, {n}] "
                   f"{str(x.dtype).replace('torch.', '')}")}
+        if cold is not None:
+            # the ranking under the write flush above, again after a flush
+            # that only reads (clean lines in the L2 when the product starts)
+            row = rows[f"{INTERCONNECT}: {label}"]["stream_matmul"]
+            row["ms_read_flush"] = time_ms(
+                torch, lambda: sm.stream_matmul(x, w), flush=cold,
+                read_flush=True)
+            row["library_ms_read_flush"] = time_ms(
+                torch, lambda: torch.matmul(x, w), flush=cold,
+                read_flush=True)
+            print(f"matmul ({label}): kernel {row['ms']:.4f} ms, library "
+                  f"{row['library_ms']:.4f} ms after a write flush; kernel "
+                  f"{row['ms_read_flush']:.4f} ms, library "
+                  f"{row['library_ms_read_flush']:.4f} ms after a read-only "
+                  f"flush", flush=True)
         if x.dtype == torch.bfloat16:
             print(f"matmul ({label}): max abs {err} from the plain version; "
                   f"{n_far} of {got.numel()} outputs more than one bf16 ulp "
@@ -659,13 +756,7 @@ def interconnect_phase(torch, dev):
         except (ValueError, TypeError):
             continue
         fail("a kernel wrapper accepted operands its kernel cannot take")
-    for m, k, n, dtype in ((33, 16, 24, torch.bfloat16),
-                           (130, 72, 264, torch.bfloat16),
-                           (70, 33, 65, torch.float32),
-                           (5, 0, 7, torch.bfloat16)):
-        x, w = normal((m, k), dtype), normal((k, n), dtype)
-        matmul_err(torch, sm.stream_matmul(x, w), x, w,
-                   f"matmul edge [{m}, {k}] @ [{k}, {n}] {dtype}")
+    matmul_edges(torch, normal)
     torch.cuda.synchronize()
     for path, by in rows.items():
         for name, r in by.items():
@@ -1059,6 +1150,30 @@ def card_vs_cpu(torch, dev):
               f"{arch} smoke not drained")
 
 
+def ptxas_report(build, names=("stream_matmul", "burst_network")) -> None:
+    """Each kernel's registers and spills, from the ``-Xptxas -v`` log that
+    the build leaves beside the library of each source in ``names``."""
+    import re
+
+    for name in names:
+        kernel = None
+        for line in Path(str(build._lib_path(name)) + ".log").read_text() \
+                .splitlines():
+            entry = re.search(r"Compiling entry function '_Z\w*?\d+"
+                              r"((?:matmul|burst)\w*?kernel)(\w*)'", line)
+            if entry:
+                kernel = entry.group(1) + (
+                    f" [{entry.group(2)}]" if entry.group(2) else "")
+                spills = "spills not reported"
+            elif "spill" in line and kernel:
+                spills = line.strip()
+            elif "registers" in line and kernel:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"ptxas {name}: {kernel[:70]}: {regs} registers; "
+                      f"{spills}", flush=True)
+                kernel = None
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1088,6 +1203,7 @@ def main() -> None:
     build.build_all()
     print(f"build: {len(build.SOURCES)} kernels in "
           f"{time.perf_counter() - t0:.1f}s ({build.BUILD_DIR})", flush=True)
+    ptxas_report(build)
 
     rows = kernels_phase(torch, dev)
     rows.update(interconnect_phase(torch, dev))
@@ -1109,7 +1225,10 @@ def main() -> None:
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"],
                          "library_ms": r["library_ms"],
-                         "path": path, "shape": r["shape"]})
+                         "path": path, "shape": r["shape"],
+                         **{key: r[key] for key in (
+                             "matmul_route", "ms_read_flush",
+                             "library_ms_read_flush") if key in r}})
     check({e["name"] for e in line} == set(KERNELS),
           "the kernels line misses a kernel")
     print(json.dumps({"kernels": line}))

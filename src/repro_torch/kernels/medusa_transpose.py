@@ -42,7 +42,8 @@ from repro_torch.kernels.launch import (launch_counts,  # noqa: F401
                                         reset_launch_counts)
 
 # C signatures: (src, idx, dst, n_lines, N, count, W, word_bytes, stream)
-# for the sparse kernels, (src, dst, N, W, word_bytes, stream) for the dense
+# for the sparse kernels, (src, dst, N, row words, row word bytes, stream)
+# for the dense
 _SPARSE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -164,19 +165,23 @@ def burst_network_plain(tile: torch.Tensor, n_ports: int) -> torch.Tensor:
 def burst_network_tiles(tile: torch.Tensor, n_ports: int) -> torch.Tensor:
     """One packed burst ``[N, N, W]`` through the transposition unit:
     ``out[y, p] = tile[p, y]``.  An involution, so the same kernel is the
-    read and the write network."""
+    read and the write network.  The kernel copies N² rows, each moved as
+    the widest word (up to 16 bytes) dividing its bytes and both buffers'
+    alignment."""
     n = n_ports
     if tile.ndim != 3 or tile.shape[0] != n or tile.shape[1] != n:
         raise ValueError(f"bad burst tile {tuple(tile.shape)} for N={n}")
     if tile.device.type == "cpu":
         return burst_network_plain(tile, n)
     kl.check_cuda("burst_network_tiles", tile=tile)
-    wb = kl.word_bytes(tile, "burst_network_tiles")
+    kl.word_bytes(tile, "burst_network_tiles")
     out = torch.empty_like(tile)
+    wb = kl.row_word(tile, out)
     fn = kl.bind("burst_network", "medusa_burst_network", _DENSE_ARGS)
     kl.count("burst_network_tiles")
-    kl.raise_on(fn(tile.data_ptr(), out.data_ptr(), n, tile.shape[2], wb,
-                 kl.stream(tile)), "burst_network_tiles")
+    kl.raise_on(fn(tile.data_ptr(), out.data_ptr(), n,
+                   tile.shape[2] * tile.element_size() // wb, wb,
+                   kl.stream(tile)), "burst_network_tiles")
     return out
 
 

@@ -2,13 +2,25 @@
 the paper's layer processor).
 
 :func:`stream_matmul` computes ``x [M, K] @ w [K, N]`` with a float32
-accumulator and casts to ``x.dtype``: the CUDA kernel
-``csrc/stream_matmul.cu`` for CUDA tensors (tensor cores for bf16, plain
-fp32 FMA for float32), the plain version for CPU tensors.  The supported
-pairs are (bf16, bf16) and (float32, float32); any other pair raises rather
-than being cast.  The kernel takes any M, N and K (its loads are
-bounds-checked and zero-filled), so the reference's block sizes ``bm, bn,
-bk`` — properties of its Pallas grid — have no counterpart here.
+accumulator and casts to ``x.dtype``: one launch of the CUDA kernel
+``csrc/stream_matmul.cu`` for CUDA tensors, the plain version for CPU
+tensors.  The supported pairs are (bf16, bf16) and (float32, float32); any
+other pair raises rather than being cast.  Every route takes any M, N and
+K, so the reference's block sizes ``bm, bn, bk`` — properties of its Pallas
+grid — have no counterpart here.
+
+:func:`route` picks the kernel from the dtype, the shape and the operands'
+alignment alone:
+
+=========  ============================================================
+route      operands
+=========  ============================================================
+fma        float32 (exact fp32 FMA on the CUDA cores, no TF32)
+mma_sync   bf16 that TMA cannot describe: K == 0, K % 8, N % 8, or a base
+           not 16-byte aligned
+small_m    bf16, otherwise, M <= SMALL_M (a stream of w: decode)
+wgmma      bf16, otherwise, M > SMALL_M (TMA + wgmma)
+=========  ============================================================
 """
 
 from __future__ import annotations
@@ -20,7 +32,11 @@ import torch
 from repro_torch.kernels import launch as kl
 from repro_torch.kernels.ref import matmul_ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the C entry point's route numbers
+ROUTES = {"fma": 0, "mma_sync": 1, "small_m": 2, "wgmma": 3}
+# the largest M of the small-M route (its kernel keeps at most 16 rows)
+SMALL_M = 16
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -37,6 +53,17 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
 
 
+def route(m: int, n: int, k: int, dtype: torch.dtype, x_ptr: int,
+          w_ptr: int) -> str:
+    """The kernel that computes ``[m, k] @ [k, n]`` of ``dtype`` from bases
+    ``x_ptr`` and ``w_ptr`` (see the module's table)."""
+    if dtype == torch.float32:
+        return "fma"
+    if k == 0 or k % 8 or n % 8 or x_ptr % 16 or w_ptr % 16:
+        return "mma_sync"
+    return "small_m" if m <= SMALL_M else "wgmma"
+
+
 def stream_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: the float32 product, cast to ``x.dtype``."""
     _check(x, w)
@@ -46,7 +73,8 @@ def stream_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def stream_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [M, K] @ w [K, N]`` with a float32 accumulator, cast to
     ``x.dtype``; both operands bf16 or both float32, any M, N, K.  One
-    launch; returns a contiguous ``[M, N]`` tensor."""
+    launch of the kernel :func:`route` picks; returns a contiguous ``[M,
+    N]`` tensor."""
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return matmul_ref(x, w)
@@ -56,6 +84,7 @@ def stream_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     fn = kl.bind("stream_matmul", "medusa_stream_matmul", _ARGS)
     kl.count("stream_matmul")
+    r = route(m, n, k, x.dtype, x.data_ptr(), w.data_ptr())
     kl.raise_on(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                   _DTYPES[x.dtype], kl.stream(x)), "stream_matmul")
+                   ROUTES[r], kl.stream(x)), f"stream_matmul ({r})")
     return out

@@ -1,0 +1,173 @@
+"""The routes of the port's redesigned kernels on the CPU: which kernel
+``stream_matmul.route`` picks for each dtype, shape and alignment, the plain
+version against the reference's oracle at each route's boundary, and the
+dense burst (``burst_network_tiles``) viewed as a row copy of the widest
+word dividing each row, against the reference's Pallas kernel in interpret
+mode.
+
+Inputs are drawn with numpy from a seed and handed to both packages.
+Matmuls: float32 within rtol 1e-5 (atol 1e-4), bf16 within one bf16 ulp of
+the reference's cast (the two fp32 sums may round to neighbouring bf16
+values); N differs from K everywhere, so a product with w transposed cannot
+pass.  The burst is word movement, so it is bit-equal.  On a CPU tensor
+every route computes the plain version, so the routes' kernels are
+exercised only on the card: ``chip_smoke.py`` holds each of them against
+the plain version there.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import medusa_transpose as jmt  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import launch as kl  # noqa: E402
+from repro_torch.kernels import medusa_transpose as tmt  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import stream_matmul as tsm  # noqa: E402
+
+BF16, F32 = torch.bfloat16, torch.float32
+S = tsm.SMALL_M
+
+
+@pytest.fixture(autouse=True)
+def _one_thread_and_kernels():
+    torch.set_num_threads(1)
+    was = tops.kernels_enabled()
+    tops.use_kernels(True)
+    yield
+    tops.use_kernels(was)
+
+
+# ----------------------------------------------------------------------------
+# kernel 7: the route table
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n,k,dtype,x_ptr,w_ptr,want", [
+    (4, 10240, 2560, BF16, 0, 0, "small_m"),          # decode
+    (6144, 10240, 2560, BF16, 0, 0, "wgmma"),         # prefill
+    (S, 10240, 2560, BF16, 0, 0, "small_m"),          # at the threshold
+    (S + 1, 10240, 2560, BF16, 0, 0, "wgmma"),        # just above it
+    (1, 8, 8, BF16, 16, 32, "small_m"),
+    (129, 67, 200, BF16, 0, 0, "mma_sync"),           # N % 8
+    (129, 64, 200 + 4, BF16, 0, 0, "mma_sync"),       # K % 8
+    (4, 64, 196, BF16, 0, 0, "mma_sync"),             # K % 8 at small M
+    (64, 64, 64, BF16, 2, 0, "mma_sync"),             # x 2-byte aligned
+    (64, 64, 64, BF16, 0, 8, "mma_sync"),             # w 8-byte aligned
+    (5, 7, 0, BF16, 0, 0, "mma_sync"),                # K == 0
+    (1024, 1024, 1024, F32, 0, 0, "fma"),
+    (4, 10240, 2560, F32, 0, 0, "fma"),
+    (129, 67, 200, F32, 4, 4, "fma"),
+])
+def test_matmul_route_table(m, n, k, dtype, x_ptr, w_ptr, want):
+    assert tsm.route(m, n, k, dtype, x_ptr, w_ptr) == want
+    assert want in tsm.ROUTES
+
+
+def test_matmul_routes_are_distinct_c_numbers():
+    assert sorted(tsm.ROUTES.values()) == list(range(len(tsm.ROUTES)))
+    assert 1 <= tsm.SMALL_M <= 16       # the small-M kernel keeps <= 16 rows
+
+
+def test_matmul_route_of_an_unaligned_view():
+    """A view 2 bytes off its buffer's start cannot feed TMA or 16-byte
+    loads: the ``mma_sync`` route, whatever the shape."""
+    base = torch.zeros(1 + 64 * 64, dtype=BF16)
+    x = base[1:].view(64, 64)
+    w = torch.zeros((64, 128), dtype=BF16)
+    assert x.data_ptr() % 16 == 2
+    assert tsm.route(64, 128, 64, BF16, x.data_ptr(), w.data_ptr()) \
+        == "mma_sync"
+    assert tsm.route(64, 128, 64, BF16, w.data_ptr(), w.data_ptr()) \
+        == "wgmma"
+
+
+# ----------------------------------------------------------------------------
+# kernel 7: the plain version at each route's boundary
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,dtype,want_route", [
+    (4, 24, 40, BF16, "small_m"),
+    (S, 24, 40, BF16, "small_m"),
+    (S + 1, 24, 40, BF16, "wgmma"),
+    (130, 72, 264, BF16, "wgmma"),
+    (33, 20, 24, BF16, "mma_sync"),              # K % 8
+    (9, 16, 12, BF16, "mma_sync"),               # N % 8
+    (70, 33, 65, F32, "fma"),
+    (4, 24, 40, F32, "fma"),
+])
+def test_matmul_plain_matches_reference_at_route_boundaries(m, k, n, dtype,
+                                                            want_route):
+    rng = np.random.default_rng(m * 1000 + k * 10 + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == BF16 else jnp.float32
+    want = np.asarray(jref.matmul_ref(jnp.asarray(x).astype(jdt),
+                                      jnp.asarray(w).astype(jdt)),
+                      np.float32)
+    tx, tw = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
+    # fresh CPU tensors are 16-byte aligned: the route follows the shape
+    assert tsm.route(m, n, k, dtype, tx.data_ptr(), tw.data_ptr()) \
+        == want_route
+    got = tsm.stream_matmul_plain(tx, tw)
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    if dtype == F32:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+        return
+    # one ulp of the reference's bf16 value: the next bf16 above its
+    # magnitude, less the magnitude
+    mag = torch.from_numpy(np.abs(want)).to(BF16)
+    ulp = ((mag.view(torch.int16) + 1).view(BF16).float() - mag.float())
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= ulp.numpy()).all(), float((diff - ulp.numpy()).max())
+
+
+# ----------------------------------------------------------------------------
+# kernel 3: the dense burst as a row copy
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,w,offset,want", [
+    (torch.int32, 4, 0, 16),        # 16-byte rows
+    (torch.int32, 98304, 0, 16),    # stablelm-1.6b's packed burst row
+    (torch.int32, 6, 0, 8),         # 24-byte rows
+    (torch.int32, 5, 0, 4),         # 20-byte rows
+    (torch.int16, 3, 0, 2),
+    (torch.uint8, 5, 0, 1),
+    (torch.int32, 4, 1, 4),         # a view 4 bytes off the buffer's start
+    (torch.int16, 8, 1, 2),         # 2 bytes off
+])
+def test_row_word_on_burst_tiles(dtype, w, offset, want):
+    n = 4
+    base = torch.zeros(offset + n * n * w, dtype=dtype)
+    tile = base[offset:].view(n, n, w)
+    out = torch.empty_like(tile)
+    assert kl.row_word(tile, out) == want
+    assert (w * tile.element_size()) % want == 0
+
+
+def _words(rng, shape, dt):
+    return rng.integers(0, np.iinfo(dt).max, size=shape, dtype=np.uint64,
+                        endpoint=True).astype(dt)
+
+
+@pytest.mark.parametrize("n,dt,w", [(4, np.uint32, 5), (8, np.uint32, 6),
+                                    (4, np.uint16, 7), (2, np.uint8, 9),
+                                    (32, np.uint32, 3)])
+def test_burst_network_matches_pallas_off_16_byte_rows(n, dt, w):
+    """Rows of 20, 24, 14, 9 and 12 bytes: the row copy moves them in 4, 8,
+    2, 1 and 4-byte words; the result is the Pallas kernel's, bit for bit,
+    and applying it twice gives the input."""
+    assert (w * np.dtype(dt).itemsize) % 16
+    rng = np.random.default_rng(n * 31 + w)
+    tile = _words(rng, (n, n, w), dt)
+    signed = {np.uint8: np.uint8, np.uint16: np.int16,
+              np.uint32: np.int32}[dt]
+    tt = torch.from_numpy(tile.view(signed).copy())
+    want = np.asarray(jmt.burst_network_tiles(jnp.asarray(tile), n))
+    got = tmt.burst_network_tiles(tt, n)
+    np.testing.assert_array_equal(got.numpy().view(dt), want)
+    back = tmt.burst_network_tiles(got, n)
+    np.testing.assert_array_equal(back.numpy().view(dt), tile)
