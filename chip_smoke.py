@@ -10,19 +10,24 @@ Phases (any fault exits non-zero):
 1. device — print ``nvidia-smi``'s name and power limit; no CUDA, no run;
 2. build  — compile the port's CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel), and print the registers
-   and spills ``-Xptxas -v`` reports for the matmul's and the dense
-   burst's kernels;
+   and spills ``-Xptxas -v`` reports for the matmul's, the dense burst's,
+   the scatter's and the layout engine's kernels;
 3. kernels — hold each kernel bit for bit against its plain PyTorch version
    on the card, at each serving path's shapes (the stablelm-1.6b engine's
    bursts: N=32 ports, W=32 32-bit words, 24 layers of a 2048-frame pool;
    the gemma3-4b engine's: N=4, W=128, 5 layers of a 6400-frame pool; the
    gemma3-4b one-shot's layout engine: K/V leaves [4, 1600, 4, 256] and
-   [4, 1024, 4, 256] bf16) and at edge cases (sentinels, 8/16/64-bit words,
-   ragged R and C, W=1, NaN payloads and -0.0, the dense burst applied
-   twice, at an odd W and off 16-byte alignment); then time kernel, plain
-   version and one PyTorch library call (the yardstick the port never
-   calls), CUDA events, median of 30 runs (bursts with a warm L2, the
-   layout engine's leaves out of a flushed one);
+   [4, 1024, 4, 256] bf16) and at edge cases (sentinels, sentinel-only
+   groups, N from 1 to 32, 8/16/64-bit words, rows off 16-byte multiples,
+   ragged R and C, W=1, NaN payloads and -0.0, views off 16-byte
+   alignment, the dense burst applied twice), the scatter and the layout
+   engine launched twice for the same bits; then time kernel, plain version
+   and one PyTorch library call (the yardstick the port never calls), CUDA
+   events, median of 30 runs (bursts with a warm L2, the layout engine's
+   leaves out of a flushed one, after a flush that rewrites a 128 MB buffer
+   and after one that only reads it, beside a contiguous ``copy_`` of the
+   same bytes and a 64-byte ``zero_()``, the floor of this timing), and
+   the layout engine's host time per wrapper call (1000 calls);
 4. interconnect — kernels 5-7 through their ``ops`` entry points
    (``interconnect_read``, ``rotate_groups``, ``matmul``) at the served
    models' full widths: the read network and the barrel rotator on
@@ -171,6 +176,19 @@ def time_ms(torch, fn, reps: int = REPS, flush=None,
     return statistics.median(times)
 
 
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn()`` over ``calls`` calls, with no
+    synchronize inside the loop (the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def bit_equal(torch, got, want, what: str) -> int:
     """Fail unless ``got`` and ``want`` hold the same words; returns the
     largest absolute difference of the words (0)."""
@@ -215,41 +233,78 @@ def print_row(name: str, path: str, r: dict) -> None:
 
 def transpose_rows(torch, dev, gen, words):
     """Kernel 4, the KV layout engine: bit-equal and timed at gemma3-4b's
-    two K/V leaf shapes, bit-equal at the edge cases.  Returns the row of
-    the kernels line (the ring leaf, 58 of the 68 launches per step) and
-    the full-attention leaf's numbers."""
+    two K/V leaf shapes, bit-equal at the edge cases, each launched twice
+    for the same bits.  Returns the row of the kernels line (the ring leaf, 58
+    of the 68 launches per step) and the full-attention leaf's numbers."""
     from repro_torch.kernels import medusa_transpose as mt
     from repro_torch.kernels import ops
 
+    def held(x, what):
+        """The kernel's result held against the plain version and against
+        a second launch; returns the largest word difference (0)."""
+        got = mt.medusa_transpose_tiles(x)
+        err = words_equal(torch, got, mt.medusa_transpose_plain(x), what)
+        words_equal(torch, mt.medusa_transpose_tiles(x), got,
+                    what + " launched again")
+        return err
+
     out = {}
     # a K/V leaf is read once per layer per step, after 8 GB of weights and
-    # the other layers' leaves went by: time it out of a cold L2
+    # the other layers' leaves went by: time it out of a cold L2, after a
+    # flush that leaves the L2 dirty (rewritten) and after one that leaves
+    # it clean (only read)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     for what, t in (("A", GEMMA_PROMPT + GEMMA_GEN), ("L", 1024)):
         x = words((GEMMA_BATCH, t, 4, 256), torch.int16).view(torch.bfloat16)
-        err = words_equal(torch, mt.medusa_transpose_tiles(x),
-                          mt.medusa_transpose_plain(x),
-                          f"transpose ({what} leaf)")
+        err = held(x, f"transpose ({what} leaf)")
         words_equal(torch, ops.kv_line_to_port(x),
                     mt.medusa_transpose_plain(x), f"kv_line_to_port ({what})")
-        out[what] = dict(
+
+        def library():
+            return x.transpose(1, 2).contiguous()
+
+        dst = torch.empty_like(x)
+        row = out[what] = dict(
             max_abs_err=err, bytes=2 * x.numel() * 2,
             ms=time_ms(torch, lambda: mt.medusa_transpose_tiles(x),
                        flush=flush),
             plain_ms=time_ms(torch, lambda: mt.medusa_transpose_plain(x),
                              flush=flush),
-            library_ms=time_ms(torch, lambda: x.transpose(1, 2).contiguous(),
-                               flush=flush),
+            library_ms=time_ms(torch, library, flush=flush),
+            ms_read_flush=time_ms(torch, lambda: mt.medusa_transpose_tiles(x),
+                                  flush=flush, read_flush=True),
+            library_ms_read_flush=time_ms(torch, library, flush=flush,
+                                          read_flush=True),
+            host_us_per_call=host_us(torch,
+                                     lambda: mt.medusa_transpose_tiles(x)),
+            copy_ms=time_ms(torch, lambda: dst.copy_(x), flush=flush),
+            copy_ms_read_flush=time_ms(torch, lambda: dst.copy_(x),
+                                       flush=flush, read_flush=True),
             shape=f"[{GEMMA_BATCH}, {t}, 4, 256] bf16 ({what} leaf)")
-        del x
+        print(f"transpose ({what} leaf): kernel {row['ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, contiguous copy_ of the same "
+              f"bytes {row['copy_ms']:.4f} ms after a write flush; "
+              f"{row['ms_read_flush']:.4f}, "
+              f"{row['library_ms_read_flush']:.4f} and "
+              f"{row['copy_ms_read_flush']:.4f} ms after a read-only flush; "
+              f"wrapper {row['host_us_per_call']:.2f} host us per call",
+              flush=True)
+        del x, dst
+    # what this timing reads for a kernel that moves almost nothing
+    tiny = torch.zeros(16, device=dev)
+    print(f"timing floor: a 64-byte zero_() reads "
+          f"{time_ms(torch, tiny.zero_, flush=flush):.4f} ms after a write "
+          f"flush", flush=True)
     del flush
     # edge cases: every word width, R and C not multiples of 4 (the kernel,
-    # and through ops.transpose_rc), W=1, NaN payloads and -0.0, a view off
-    # 16-byte alignment
+    # and through ops.transpose_rc), W=1, NaN payloads and -0.0, 16-byte
+    # rows at a ragged R, a view off 16-byte alignment
     for dtype, shape in ((torch.uint8, (3, 7, 5, 1)), (torch.int16, (7, 13, 3)),
                          (torch.int32, (2, 9, 6, 2)), (torch.int64, (5, 3, 1)),
                          (torch.float32, (2, 100, 36, 3)),
-                         (torch.bfloat16, (3, 11, 2, 16))):
+                         (torch.bfloat16, (3, 11, 2, 16)),
+                         (torch.int32, (2, 100, 36, 4)),
+                         (torch.bfloat16, (4, 37, 4, 256))):
         if dtype.is_floating_point:
             w = {2: torch.int16, 4: torch.int32}[dtype.itemsize]
             x = words(shape, w).view(dtype)
@@ -262,15 +317,68 @@ def transpose_rows(torch, dev, gen, words):
             x = words(shape, dtype if dtype != torch.uint8 else torch.int16
                       ).to(dtype)
         what = f"transpose edge {dtype} {list(shape)}"
-        words_equal(torch, mt.medusa_transpose_tiles(x),
-                    mt.medusa_transpose_plain(x), what)
+        held(x, what)
         words_equal(torch, ops.transpose_rc(x), mt.medusa_transpose_plain(x),
                     what + " (ops.transpose_rc)")
     base = words((1 + 4 * 8 * 16,), torch.int16).view(torch.bfloat16)
     x = base[1:].view(4, 8, 16)               # 2-byte aligned, not 16
-    words_equal(torch, mt.medusa_transpose_tiles(x),
-                mt.medusa_transpose_plain(x), "transpose edge unaligned view")
+    held(x, "transpose edge unaligned view")
     return out
+
+
+def scatter_edges(torch, gen, words, dev) -> None:
+    """Kernel 2 at its edges, each launched twice for the same bits: N in
+    {1, 4, 8, 32}; rows of 4, 5 and 6 bytes and of 16-byte multiples;
+    ``banked`` and ``into`` views off 16-byte alignment; groups of live
+    frames, of live frames mixed with sentinels (L, 2^30 and -1) and of
+    sentinels only.  Rows no index names keep their bytes."""
+    from repro_torch.kernels import medusa_transpose as mt
+
+    for n, dtype, w, off_b, off_i in (
+            (1, torch.int32, 4, 0, 0), (1, torch.int16, 3, 0, 0),
+            (4, torch.int32, 128, 0, 0), (4, torch.int16, 3, 0, 0),
+            (4, torch.uint8, 5, 0, 0), (8, torch.int32, 1, 0, 0),
+            (32, torch.int32, 32, 0, 0), (32, torch.int16, 64, 0, 0),
+            (32, torch.int32, 32, 1, 0), (32, torch.int32, 32, 0, 2),
+            (4, torch.int16, 8, 1, 3)):
+        l = 6 * n
+        perm = torch.randperm(l, generator=gen, device=dev)
+        mixed = torch.tensor([l, 2 ** 30, -1], device=dev).repeat(n)[:n]
+        mixed[::2] = perm[2 * n:2 * n + (n + 1) // 2]
+        idx = torch.cat([perm[:n], mixed, torch.full((n,), l, device=dev),
+                         perm[n:2 * n]]).to(torch.int32)
+        g = idx.numel() // n
+
+        def view(shape, off):
+            size = off + math.prod(shape)
+            flat = words((size,), torch.int16 if dtype == torch.uint8
+                         else dtype).to(dtype)
+            return flat[off:].view(shape)
+
+        banked = view((g, n, n, w), off_b)
+        into0 = view((l, n, w), off_i)
+        want = into0.clone()
+        mt.scatter_burst_plain(banked, idx, want, n)
+        what = (f"scatter edge N={n} {dtype} W={w} (views {off_b}, {off_i} "
+                f"words off)")
+
+        def target():
+            t = view((l, n, w), off_i)
+            t.copy_(into0)
+            return t
+
+        got = target()
+        mt.scatter_burst_network_tiles(banked, idx, got, n)
+        bit_equal(torch, got, want, what)
+        again = target()
+        mt.scatter_burst_network_tiles(banked, idx, again, n)
+        bit_equal(torch, again, got, what + " launched again")
+        live = idx[(idx >= 0) & (idx < l)].long()
+        untouched = torch.ones(l, dtype=torch.bool, device=dev)
+        untouched[live] = False
+        check(bool(untouched.any()) and torch.equal(got[untouched],
+                                                    into0[untouched]),
+              f"{what}: untouched rows moved")
 
 
 def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
@@ -327,7 +435,8 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
         library_ms=time_ms(torch, gather_library),
         shape=f"lines {list(lines.shape)} int32, idx [{k}]")
 
-    # -- scatter ---------------------------------------------------------------
+    # -- scatter: a second launch into a fresh copy and one applied again in
+    #    place give the same bits ---------------------------------------------
     g = k // n
     banked = words((g, n, n, w))
     into0 = words((reps * frames, n, w))
@@ -335,6 +444,11 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     mt.scatter_burst_network_tiles(banked, idx, into_k, n)
     mt.scatter_burst_plain(banked, idx, into_p, n)
     err = bit_equal(torch, into_k, into_p, f"scatter ({arch} engine shape)")
+    again = into0.clone()
+    mt.scatter_burst_network_tiles(banked, idx, again, n)
+    bit_equal(torch, again, into_k, f"scatter ({arch}) launched again")
+    mt.scatter_burst_network_tiles(banked, idx, again, n)
+    bit_equal(torch, again, into_k, f"scatter ({arch}) applied twice")
     live = idx[(idx >= 0) & (idx < into0.shape[0])]
     check(live.unique().numel() == live.numel(), "scatter rows not unique")
     nbytes = g * n * n * w * 4 + k * 4 + live.numel() * n * w * 4
@@ -353,7 +467,7 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
         library_ms=time_ms(torch, scatter_library),
         shape=f"banked {list(banked.shape)} int32, into "
               f"{list(into0.shape)}")
-    del into0, into_k, into_p, banked
+    del into0, into_k, into_p, banked, again
 
     # -- dense burst (the gather-after-burst path: both K/V pool streams
     #    packed on the word axis) ----------------------------------------------
@@ -391,7 +505,8 @@ def kernels_phase(torch, dev):
             for arch, prompt, g in (("stablelm-1.6b", STABLELM_PROMPT, 64),
                                     ("gemma3-4b", GEMMA_PROMPT, GEMMA_GEN))}
 
-    # -- edge cases: sentinels, 16-bit and 8-bit words, N=4, odd widths -------
+    # -- edge cases of kernels 1 and 3: sentinels, 16-bit and 8-bit words,
+    #    N=4, odd widths (kernel 2's: scatter_edges) ---------------------------
     for n_e, dtype, w_e in ((4, torch.int16, 3), (32, torch.int16, 64),
                             (4, torch.uint8, 5), (8, torch.int32, 1)):
         l_e = 6 * n_e
@@ -405,21 +520,13 @@ def kernels_phase(torch, dev):
         bit_equal(torch, mt.gather_burst_network_tiles(lines_e, idx_e, n_e),
                   mt.gather_burst_plain(lines_e, idx_e, n_e),
                   f"gather edge {what}")
-        banked_e = words((idx_e.numel() // n_e, n_e, n_e, w_e), dtype)
-        a, b = lines_e.clone(), lines_e.clone()
-        mt.scatter_burst_network_tiles(banked_e, idx_e, a, n_e)
-        mt.scatter_burst_plain(banked_e, idx_e, b, n_e)
-        bit_equal(torch, a, b, f"scatter edge {what}")
-        untouched = torch.ones(l_e, dtype=torch.bool, device=dev)
-        untouched[perm[: 2 * n_e]] = False
-        check(torch.equal(a[untouched], lines_e[untouched]),
-              f"scatter edge {what}: untouched rows moved")
         tile_e = words((n_e, n_e, w_e), dtype)
         got_e = mt.burst_network_tiles(tile_e, n_e)
         bit_equal(torch, got_e, mt.burst_network_plain(tile_e, n_e),
                   f"burst edge {what}")
         bit_equal(torch, mt.burst_network_tiles(got_e, n_e), tile_e,
                   f"burst edge {what} applied twice")
+    scatter_edges(torch, gen, words, dev)
     # kernel 3 at an odd word count and off 16-byte alignment (the row copy
     # then moves narrower words)
     for what, tile_e in (
@@ -1150,7 +1257,8 @@ def card_vs_cpu(torch, dev):
               f"{arch} smoke not drained")
 
 
-def ptxas_report(build, names=("stream_matmul", "burst_network")) -> None:
+def ptxas_report(build, names=("stream_matmul", "burst_network",
+                                "scatter_burst", "medusa_transpose")) -> None:
     """Each kernel's registers and spills, from the ``-Xptxas -v`` log that
     the build leaves beside the library of each source in ``names``."""
     import re
@@ -1160,7 +1268,8 @@ def ptxas_report(build, names=("stream_matmul", "burst_network")) -> None:
         for line in Path(str(build._lib_path(name)) + ".log").read_text() \
                 .splitlines():
             entry = re.search(r"Compiling entry function '_Z\w*?\d+"
-                              r"((?:matmul|burst)\w*?kernel)(\w*)'", line)
+                              r"((?:matmul|burst|scatter|transpose)"
+                              r"\w*?kernel)(\w*)'", line)
             if entry:
                 kernel = entry.group(1) + (
                     f" [{entry.group(2)}]" if entry.group(2) else "")
@@ -1228,7 +1337,9 @@ def main() -> None:
                          "path": path, "shape": r["shape"],
                          **{key: r[key] for key in (
                              "matmul_route", "ms_read_flush",
-                             "library_ms_read_flush") if key in r}})
+                             "library_ms_read_flush", "host_us_per_call",
+                             "copy_ms", "copy_ms_read_flush")
+                             if key in r}})
     check({e["name"] for e in line} == set(KERNELS),
           "the kernels line misses a kernel")
     print(json.dumps({"kernels": line}))

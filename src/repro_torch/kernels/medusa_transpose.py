@@ -21,7 +21,8 @@ on tensors) for a tensor on the CPU, launches its kernel for a CUDA tensor,
 and raises on anything it cannot take.  There is no fallback from the
 kernel to the plain version.  The kernels move machine words: a payload of
 any dtype is viewed as the unsigned word of its width (1, 2, 4 or 8 bytes),
-so one instance per width serves every dtype.
+so one instance per width serves every dtype; the row copies view each
+payload row as the widest word dividing it (up to 16 bytes).
 
 Each kernel keeps a launch count (:func:`launch_counts`, kept for every
 kernel of the port in :mod:`repro_torch.kernels.launch`), incremented where
@@ -42,8 +43,8 @@ from repro_torch.kernels.launch import (launch_counts,  # noqa: F401
                                         reset_launch_counts)
 
 # C signatures: (src, idx, dst, n_lines, N, count, W, word_bytes, stream)
-# for the sparse kernels, (src, dst, N, row words, row word bytes, stream)
-# for the dense
+# for the sparse kernels (the scatter's W in row words of up to 16 bytes),
+# (src, dst, N, row words, row word bytes, stream) for the dense
 _SPARSE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -127,7 +128,9 @@ def scatter_burst_network_tiles(banked: torch.Tensor, idx: torch.Tensor,
 
     Live indices must be unique — the page pool never maps a physical frame
     twice.  The kernel's blocks run concurrently, so with a duplicate the
-    frame that lands would be unspecified."""
+    frame that lands would be unspecified.  The kernel copies whole frames,
+    each row moved as the widest word (up to 16 bytes) dividing its bytes
+    and both buffers' alignment."""
     n = n_ports
     g, n0, n1, w = banked.shape
     if n0 != n or n1 != n or idx.shape[0] != g * n:
@@ -144,12 +147,13 @@ def scatter_burst_network_tiles(banked: torch.Tensor, idx: torch.Tensor,
         return scatter_burst_plain(banked, idx, into, n)
     kl.check_cuda("scatter_burst_network_tiles", banked=banked, idx=idx,
                 into=into)
-    wb = kl.word_bytes(banked, "scatter_burst_network_tiles")
+    kl.word_bytes(banked, "scatter_burst_network_tiles")
+    wb = kl.row_word(banked, into)
     fn = kl.bind("scatter_burst", "medusa_scatter_burst", _SPARSE_ARGS)
     kl.count("scatter_burst_network_tiles")
     kl.raise_on(fn(banked.data_ptr(), idx.data_ptr(), into.data_ptr(),
-                 into.shape[0], n, g, w, wb, kl.stream(banked)),
-              "scatter_burst_network_tiles")
+                   into.shape[0], n, g, w * banked.element_size() // wb, wb,
+                   kl.stream(banked)), "scatter_burst_network_tiles")
     return into
 
 

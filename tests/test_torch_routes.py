@@ -1,15 +1,19 @@
 """The routes of the port's redesigned kernels on the CPU: which kernel
 ``stream_matmul.route`` picks for each dtype, shape and alignment, the plain
-version against the reference's oracle at each route's boundary, and the
-dense burst (``burst_network_tiles``) viewed as a row copy of the widest
-word dividing each row, against the reference's Pallas kernel in interpret
-mode.
+version against the reference's oracle at each route's boundary, the dense
+burst (``burst_network_tiles``) and the write-side burst
+(``scatter_burst_network_tiles``) viewed as row copies of the widest word
+dividing each row and both buffers' alignment, and the plain versions of
+the write-side burst and the layout engine (``medusa_transpose_tiles``)
+against the reference's Pallas kernels in interpret mode on both sides of
+the 16-byte row word.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 Matmuls: float32 within rtol 1e-5 (atol 1e-4), bf16 within one bf16 ulp of
 the reference's cast (the two fp32 sums may round to neighbouring bf16
 values); N differs from K everywhere, so a product with w transposed cannot
-pass.  The burst is word movement, so it is bit-equal.  On a CPU tensor
+pass.  The bursts and the layout engine are word movement, so they are
+bit-equal (bf16 NaN payloads up to the reference's quieting, ROADMAP §3).  On a CPU tensor
 every route computes the plain version, so the routes' kernels are
 exercised only on the card: ``chip_smoke.py`` holds each of them against
 the plain version there.
@@ -171,3 +175,149 @@ def test_burst_network_matches_pallas_off_16_byte_rows(n, dt, w):
     np.testing.assert_array_equal(got.numpy().view(dt), want)
     back = tmt.burst_network_tiles(got, n)
     np.testing.assert_array_equal(back.numpy().view(dt), tile)
+
+
+# ----------------------------------------------------------------------------
+# kernels 2 and 4: the write-side burst and the layout engine as row copies
+# ----------------------------------------------------------------------------
+
+def _signed(a):
+    return a.view({np.uint8: np.uint8, np.uint16: np.int16,
+                   np.uint32: np.int32}[a.dtype.type])
+
+
+@pytest.mark.parametrize("dtype,w,off_b,off_i,want", [
+    (torch.int32, 32, 0, 0, 16),     # stablelm-1.6b's 128-byte rows
+    (torch.int32, 128, 0, 0, 16),    # gemma3-4b's 512-byte rows
+    (torch.int16, 64, 1, 0, 2),      # banked 2 bytes off
+    (torch.int32, 32, 1, 0, 4),      # banked 4 bytes off
+    (torch.int32, 128, 0, 2, 8),     # into 8 bytes off
+    (torch.int32, 32, 2, 1, 4),      # 8 and 4 bytes off: the narrower
+    (torch.int16, 256, 4, 4, 8),     # both 8 bytes off, 512-byte rows
+    (torch.int16, 3, 0, 0, 2),       # 6-byte rows
+])
+def test_row_word_on_scatter_operands(dtype, w, off_b, off_i, want):
+    """The scatter's row word divides the row's bytes and the alignment of
+    both ``banked`` and ``into``: frame offsets are whole rows, so every
+    word the kernel moves stays aligned."""
+    n, g, lines = 4, 2, 8
+    bb = torch.zeros(off_b + g * n * n * w, dtype=dtype)
+    ib = torch.zeros(off_i + lines * n * w, dtype=dtype)
+    banked = bb[off_b:].view(g, n, n, w)
+    into = ib[off_i:].view(lines, n, w)
+    assert kl.row_word(banked, into) == want
+    assert kl.row_word(into, banked) == want
+    assert (w * banked.element_size()) % want == 0
+
+
+# (N, word, W): rows of 16-byte multiples (the 16-byte row word) and
+# rows that are not (narrower words), at N = 1, 4 and 32
+SCATTER_CASES = [(1, np.uint32, 4), (1, np.uint16, 3), (4, np.uint32, 4),
+                 (4, np.uint32, 128), (4, np.uint16, 3), (4, np.uint8, 5),
+                 (32, np.uint32, 32), (32, np.uint16, 5), (32, np.uint8, 16)]
+
+
+@pytest.mark.parametrize("n,dt,w", SCATTER_CASES)
+def test_scatter_plain_matches_pallas_at_row_word_boundaries(n, dt, w):
+    """Groups of live frames, of live frames mixed with sentinels (L and
+    2^30) and of sentinels only: the plain version and the wrapper on the
+    CPU equal the Pallas kernel bit for bit, and rows no index names keep
+    their bytes."""
+    rng = np.random.default_rng(n * 101 + w * 7 + np.dtype(dt).itemsize)
+    lines = 6 * n
+    perm = rng.permutation(lines)
+    mixed = np.where(np.arange(n) % 2 == 0, perm[2 * n:3 * n],
+                     np.where(np.arange(n) % 4 == 1, lines, 2 ** 30))
+    idx = np.concatenate([perm[:n], mixed, np.full(n, lines),
+                          perm[n:2 * n]]).astype(np.int32)
+    g = len(idx) // n
+    banked = _words(rng, (g, n, n, w), dt)
+    into = _words(rng, (lines, n, w), dt)
+    want = np.asarray(jmt.scatter_burst_network_tiles(
+        jnp.asarray(banked), jnp.asarray(idx), jnp.asarray(into), n))
+    tb, ti = torch.from_numpy(_signed(banked)), torch.from_numpy(idx)
+    plain = tmt.scatter_burst_plain(tb, ti, torch.from_numpy(
+        _signed(into).copy()), n)
+    np.testing.assert_array_equal(plain.numpy().view(dt), want)
+    target = torch.from_numpy(_signed(into).copy())
+    got = tmt.scatter_burst_network_tiles(tb, ti, target, n)
+    assert got is target
+    np.testing.assert_array_equal(got.numpy().view(dt), want)
+    live = idx[(idx >= 0) & (idx < lines)]
+    untouched = np.setdiff1d(np.arange(lines), live)
+    assert len(untouched) > 0
+    np.testing.assert_array_equal(want[untouched], into[untouched])
+
+
+def test_scatter_plain_on_views_off_alignment():
+    """``banked`` and ``into`` as views 4 and 8 bytes off 16-byte
+    alignment (the row copy then moves 4-byte words): the same frames as
+    from aligned copies, and the Pallas kernel's."""
+    n, w, lines = 4, 8, 20
+    rng = np.random.default_rng(5)
+    idx = np.concatenate([rng.permutation(lines)[:2 * n],
+                          np.full(n, lines)]).astype(np.int32)
+    banked = _words(rng, (3, n, n, w), np.uint32)
+    into = _words(rng, (lines, n, w), np.uint32)
+    want = np.asarray(jmt.scatter_burst_network_tiles(
+        jnp.asarray(banked), jnp.asarray(idx), jnp.asarray(into), n))
+    bb = torch.zeros(1 + banked.size, dtype=torch.int32)
+    ib = torch.zeros(2 + into.size, dtype=torch.int32)
+    tb, ti = bb[1:].view(banked.shape), ib[2:].view(into.shape)
+    tb.copy_(torch.from_numpy(_signed(banked)))
+    ti.copy_(torch.from_numpy(_signed(into)))
+    assert tb.data_ptr() % 16 == 4 and ti.data_ptr() % 16 == 8
+    assert kl.row_word(tb, ti) == 4
+    got = tmt.scatter_burst_network_tiles(tb, torch.from_numpy(idx), ti, n)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def _bf16_canon(bits):
+    """The reference kernel's interpret-mode image of bfloat16 words: NaNs
+    quieted to ``sign | 0x7FC0`` by its exchange stages (ROADMAP §3)."""
+    nan = ((bits & 0x7F80) == 0x7F80) & ((bits & 0x007F) != 0)
+    return np.where(nan, (bits & 0x8000) | 0x7FC0, bits).astype(bits.dtype)
+
+
+# (R, C, W, word, batch): rows of 16-byte multiples and not, W = 1, the
+# gemma3-4b head row (256 bf16, 512 bytes), one and several batch rows
+TRANSPOSE_CASES = [(8, 8, 8, np.uint16, 1), (16, 8, 256, np.uint16, 2),
+                   (8, 16, 3, np.uint16, 1), (8, 8, 1, np.uint8, 3),
+                   (16, 16, 4, np.uint32, 2), (8, 24, 5, np.uint32, 1)]
+
+
+@pytest.mark.parametrize("r,c,w,dt,b", TRANSPOSE_CASES)
+def test_transpose_plain_matches_pallas_at_row_word_boundaries(r, c, w, dt,
+                                                               b):
+    """``[B, R, C, W] -> [B, C, R, W]`` in one call against the Pallas
+    kernel on every batch row; bf16 payloads carry NaNs with payload bits
+    and -0.0, equal to the reference up to its NaN quieting and to numpy's
+    ``swapaxes`` exactly."""
+    rng = np.random.default_rng(r * 31 + c * 7 + w + b)
+    x = _words(rng, (b, r, c, w), dt)
+    bf16 = dt == np.uint16
+    if bf16:
+        x.reshape(-1)[:3] = (0x7FC1, 0xFFA5, 0x8000)
+    oracle = np.swapaxes(x, 1, 2)
+    jdt = jnp.bfloat16 if bf16 else jnp.dtype(dt)
+
+    def ref(row):
+        arr = jnp.asarray(row)
+        if bf16:
+            arr = arr.view(jnp.bfloat16)
+        out = np.asarray(jmt.medusa_transpose_tiles(arr, tile=8))
+        return out.view(dt) if bf16 else out
+
+    want = np.stack([ref(x[i]) for i in range(b)])
+    assert jnp.dtype(jdt).itemsize == np.dtype(dt).itemsize
+    np.testing.assert_array_equal(want, _bf16_canon(oracle) if bf16
+                                  else oracle)
+    tx = torch.from_numpy(_signed(x))
+    if bf16:
+        tx = tx.view(BF16)
+    for got in (tmt.medusa_transpose_plain(tx),
+                tmt.medusa_transpose_tiles(tx)):
+        assert got.is_contiguous() and tuple(got.shape) == (b, c, r, w)
+        if bf16:
+            got = got.view(torch.int16)
+        np.testing.assert_array_equal(got.numpy().view(dt), oracle)
