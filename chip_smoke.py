@@ -11,7 +11,7 @@ Phases (any fault exits non-zero):
 2. build  — compile the port's CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel), and print the registers
    and spills ``-Xptxas -v`` reports for the matmul's, the dense burst's,
-   the scatter's and the layout engine's kernels;
+   the gather's, the scatter's and the layout engine's kernels;
 3. kernels — hold each kernel bit for bit against its plain PyTorch version
    on the card, at each serving path's shapes (the stablelm-1.6b engine's
    bursts: N=32 ports, W=32 32-bit words, 24 layers of a 2048-frame pool;
@@ -20,14 +20,16 @@ Phases (any fault exits non-zero):
    [4, 1024, 4, 256] bf16) and at edge cases (sentinels, sentinel-only
    groups, N from 1 to 32, 8/16/64-bit words, rows off 16-byte multiples,
    ragged R and C, W=1, NaN payloads and -0.0, views off 16-byte
-   alignment, the dense burst applied twice), the scatter and the layout
-   engine launched twice for the same bits; then time kernel, plain version
+   alignment, the dense burst applied twice), the gather, the scatter and
+   the layout engine launched twice for the same bits, the gather's
+   sentinel frames read as zeros; then time kernel, plain version
    and one PyTorch library call (the yardstick the port never calls), CUDA
    events, median of 30 runs (bursts with a warm L2, the layout engine's
    leaves out of a flushed one, after a flush that rewrites a 128 MB buffer
    and after one that only reads it, beside a contiguous ``copy_`` of the
    same bytes and a 64-byte ``zero_()``, the floor of this timing), and
-   the layout engine's host time per wrapper call (1000 calls);
+   the host time per wrapper call of the layout engine (1000 calls) and of
+   the gather (100 calls at each engine's shape);
 4. interconnect — kernels 5-7 through their ``ops`` entry points
    (``interconnect_read``, ``rotate_groups``, ``matmul``) at the served
    models' full widths: the read network and the barrel rotator on
@@ -381,6 +383,42 @@ def scatter_edges(torch, gen, words, dev) -> None:
               f"{what}: untouched rows moved")
 
 
+def gather_edges(torch, gen, words, dev) -> None:
+    """Kernel 1 at its edges, each launched twice for the same bits: N in
+    {1, 4, 8, 32}; rows of 4, 5 and 6 bytes and of 16-byte multiples;
+    ``lines`` as views 1-3 words off 16-byte alignment; groups of live
+    frames, of live frames mixed with sentinels (L, 2^30 and -1) and of
+    sentinels only.  Sentinel frames read as zeros."""
+    from repro_torch.kernels import medusa_transpose as mt
+
+    for n, dtype, w, off in (
+            (1, torch.int32, 4, 0), (1, torch.int16, 3, 0),
+            (4, torch.int32, 128, 0), (4, torch.int16, 3, 0),
+            (4, torch.uint8, 5, 0), (8, torch.int32, 1, 0),
+            (32, torch.int32, 32, 0), (32, torch.int16, 64, 0),
+            (32, torch.int32, 32, 1), (8, torch.int32, 8, 2),
+            (4, torch.int16, 8, 3)):
+        l = 6 * n
+        perm = torch.randperm(l, generator=gen, device=dev)
+        sentinels = torch.tensor([l, 2 ** 30, -1], device=dev).repeat(n)
+        mixed = sentinels[:n].clone()
+        mixed[::2] = perm[2 * n:2 * n + (n + 1) // 2]
+        idx = torch.cat([perm[:n], mixed, sentinels[1:n + 1],
+                         perm[n:2 * n]]).to(torch.int32)
+        flat = words((off + l * n * w,), torch.int16 if dtype == torch.uint8
+                     else dtype).to(dtype)
+        lines = flat[off:].view(l, n, w)
+        what = f"gather edge N={n} {dtype} W={w} (lines {off} words off)"
+        got = mt.gather_burst_network_tiles(lines, idx, n)
+        bit_equal(torch, got, mt.gather_burst_plain(lines, idx, n), what)
+        bit_equal(torch, mt.gather_burst_network_tiles(lines, idx, n), got,
+                  what + " launched again")
+        frames = got.transpose(1, 2).reshape(idx.numel(), n, w)
+        sentinel = (idx < 0) | (idx >= l)
+        check(bool(sentinel.any()) and not bool(frames[sentinel].any()),
+              f"{what}: a sentinel frame is not zeros")
+
+
 def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     """Kernels 1-3 at one engine path's geometry: ``arch``'s fabric (N
     ports, a bf16 head vector folded into 32-bit words), its full-attention
@@ -413,10 +451,12 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     k = idx.shape[0]
     rows = {}
 
-    # -- gather ----------------------------------------------------------------
+    # -- gather: a second launch gives the same bits --------------------------
     got = mt.gather_burst_network_tiles(lines, idx, n)
     err = bit_equal(torch, got, mt.gather_burst_plain(lines, idx, n),
                     f"gather ({arch} engine shape)")
+    bit_equal(torch, mt.gather_burst_network_tiles(lines, idx, n), got,
+              f"gather ({arch}) launched again")
     valid = int(((idx >= 0) & (idx < lines.shape[0])).sum())
     nbytes = valid * n * w * 4 + k * 4 + k * n * w * 4
     lib_valid = (idx >= 0) & (idx < lines.shape[0])
@@ -433,7 +473,13 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
                                                                 n)),
         plain_ms=time_ms(torch, lambda: mt.gather_burst_plain(lines, idx, n)),
         library_ms=time_ms(torch, gather_library),
+        # few calls: the device, not the host, would set the pace of more
+        host_us_per_call=host_us(torch, lambda: mt.gather_burst_network_tiles(
+            lines, idx, n), calls=100),
         shape=f"lines {list(lines.shape)} int32, idx [{k}]")
+    print(f"gather ({arch}): wrapper "
+          f"{rows['gather_burst_network_tiles']['host_us_per_call']:.2f} host "
+          f"us per call", flush=True)
 
     # -- scatter: a second launch into a fresh copy and one applied again in
     #    place give the same bits ---------------------------------------------
@@ -505,27 +551,18 @@ def kernels_phase(torch, dev):
             for arch, prompt, g in (("stablelm-1.6b", STABLELM_PROMPT, 64),
                                     ("gemma3-4b", GEMMA_PROMPT, GEMMA_GEN))}
 
-    # -- edge cases of kernels 1 and 3: sentinels, 16-bit and 8-bit words,
-    #    N=4, odd widths (kernel 2's: scatter_edges) ---------------------------
+    # -- edge cases of kernel 3: 16-bit and 8-bit words, N=4, odd widths
+    #    (kernels 1 and 2's: gather_edges, scatter_edges) ---------------------
     for n_e, dtype, w_e in ((4, torch.int16, 3), (32, torch.int16, 64),
                             (4, torch.uint8, 5), (8, torch.int32, 1)):
-        l_e = 6 * n_e
-        lines_e = words((l_e, n_e, w_e), dtype)
-        perm = torch.randperm(l_e, generator=gen, device=dev)
-        sent = torch.tensor([l_e, 2 ** 30], device=dev)
-        idx_e = torch.cat([perm[: 2 * n_e], sent.repeat(n_e)])
-        idx_e = idx_e[torch.randperm(idx_e.numel(), generator=gen,
-                                     device=dev)].to(torch.int32)
         what = f"N={n_e} {dtype} W={w_e}"
-        bit_equal(torch, mt.gather_burst_network_tiles(lines_e, idx_e, n_e),
-                  mt.gather_burst_plain(lines_e, idx_e, n_e),
-                  f"gather edge {what}")
         tile_e = words((n_e, n_e, w_e), dtype)
         got_e = mt.burst_network_tiles(tile_e, n_e)
         bit_equal(torch, got_e, mt.burst_network_plain(tile_e, n_e),
                   f"burst edge {what}")
         bit_equal(torch, mt.burst_network_tiles(got_e, n_e), tile_e,
                   f"burst edge {what} applied twice")
+    gather_edges(torch, gen, words, dev)
     scatter_edges(torch, gen, words, dev)
     # kernel 3 at an odd word count and off 16-byte alignment (the row copy
     # then moves narrower words)
@@ -1258,7 +1295,8 @@ def card_vs_cpu(torch, dev):
 
 
 def ptxas_report(build, names=("stream_matmul", "burst_network",
-                                "scatter_burst", "medusa_transpose")) -> None:
+                                "gather_burst", "scatter_burst",
+                                "medusa_transpose")) -> None:
     """Each kernel's registers and spills, from the ``-Xptxas -v`` log that
     the build leaves beside the library of each source in ``names``."""
     import re
@@ -1268,7 +1306,7 @@ def ptxas_report(build, names=("stream_matmul", "burst_network",
         for line in Path(str(build._lib_path(name)) + ".log").read_text() \
                 .splitlines():
             entry = re.search(r"Compiling entry function '_Z\w*?\d+"
-                              r"((?:matmul|burst|scatter|transpose)"
+                              r"((?:matmul|burst|gather|scatter|transpose)"
                               r"\w*?kernel)(\w*)'", line)
             if entry:
                 kernel = entry.group(1) + (

@@ -7,7 +7,11 @@
 //   (sentinel entries drop; rows no index names keep their bytes)
 //
 // banked [G, N, N, W] and into [L, N, W] are machine words; idx is int32
-// [G*N].  The TPU kernel clamps a sentinel onto row L-1 and rewrites that
+// [G*N].  Sentinels are every index outside [0, L), negative ones
+// included.  The reference takes only idx >= L as a sentinel and wraps a
+// negative index as Python indexing does; no caller emits one
+// (page_live_plan refuses a table that would, and FRAME_SENTINEL is
+// 2**30).  The TPU kernel clamps a sentinel onto row L-1 and rewrites that
 // row with its own contents, which is safe only because its grid runs in
 // order.  Blocks here run concurrently, so the store is masked instead: a
 // sentinel entry issues no store at all.  Live indices must be unique (the
@@ -18,56 +22,25 @@
 // once and writes only the live frames; rows the indices never name are not
 // touched, so the pool-sized `into` costs nothing beyond the live frames.
 //
-// Design: a frame copy.  A frame (one (g, r)) is N rows of W words, strided
-// by N*W in banked and one contiguous block at idx[g*N + r] in into (4 KB
-// at stablelm-1.6b, 2 KB at gemma3-4b).  The wrapper views each row as the
-// widest word (up to 16 bytes) dividing its bytes and both buffers'
-// alignment.  Warps walk the frames, one at a time: a warp reads its
-// frame's index once, and a sentinel frame loads and stores nothing.  Lane
-// l moves words l, l + 32, ... of the frame, kBatch loads before their
-// stores; its place (row, word) steps by 32 words without a division, so a
-// frame costs one division and a warp two more.  Offsets inside a frame
-// are 32-bit, only the frame bases 64-bit.  A warp instruction stores 512
-// contiguous bytes and reads whole rows (at stablelm-1.6b, four 128-byte
-// rows).  The launch gives every frame its warp, which measured faster at
-// stablelm-1.6b's shape than a grid of only the resident blocks walking
-// the frames, and than the same grid without the frame loop.  A TMA route
-// (one tensor-map load of a frame into shared memory, one bulk store) was
-// 10-19 % slower at both served shapes and was not kept.
+// Design: a frame copy (medusa::copy_frame).  A frame (one (g, r)) is N
+// rows of W words, strided by N*W in banked and one contiguous block at
+// idx[g*N + r] in into (4 KB at stablelm-1.6b, 2 KB at gemma3-4b).  The
+// wrapper views each row as the widest word (up to 16 bytes) dividing its
+// bytes and both buffers' alignment.  A warp reads its frame's index once,
+// and a sentinel frame loads and stores nothing.  A frame costs one
+// division (its group) and a warp two more (its lanes' places).  A warp
+// instruction stores 512 contiguous bytes and reads whole rows (at
+// stablelm-1.6b, four 128-byte rows).  The launch gives every frame its
+// warp, which measured faster at stablelm-1.6b's shape than a grid of only
+// the resident blocks walking the frames, and than the same grid without
+// the frame loop.  A TMA route (one tensor-map load of a frame into shared
+// memory, one bulk store) was 10-19 % slower at both served shapes and was
+// not kept.
 #include "burst_common.cuh"
 
 namespace {
 
-constexpr int kBatch = 8;                      // loads in flight a lane
-constexpr int kWarps = medusa::kThreads / 32;
-
-// a frame's N rows of rw words, row y at src + y * frame_words, to dst;
-// (row, wi) is the lane's first word, (drow, dwi) the step of 32 words
-template <typename T>
-__device__ __forceinline__ void copy_frame(const T* __restrict__ src,
-                                           T* __restrict__ dst,
-                                           unsigned int frame_words,
-                                           unsigned int rw, unsigned int row,
-                                           unsigned int wi, unsigned int drow,
-                                           unsigned int dwi,
-                                           unsigned int lane) {
-  for (unsigned int o = lane; o < frame_words; o += 32 * kBatch) {
-    T v[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      if (o + 32 * i < frame_words) v[i] = src[row * frame_words + wi];
-      wi += dwi;
-      row += drow;
-      if (wi >= rw) {
-        wi -= rw;
-        ++row;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i)
-      if (o + 32 * i < frame_words) dst[o + 32 * i] = v[i];
-  }
-}
+using medusa::kWarps;
 
 template <typename T>
 __global__ void __launch_bounds__(medusa::kThreads)
@@ -77,17 +50,16 @@ scatter_burst_kernel(const T* __restrict__ banked,
                      unsigned int rw) {
   const unsigned int lane = threadIdx.x & 31;
   const unsigned int frame_words = n * rw;     // also banked's row stride
-  const unsigned int drow = 32u / rw, dwi = 32u - drow * rw;
-  const unsigned int row0 = lane / rw, wi0 = lane - row0 * rw;
+  const medusa::LanePlace at(lane, rw);
   for (unsigned int f = blockIdx.x * kWarps + threadIdx.x / 32; f < frames;
        f += gridDim.x * kWarps) {
     const unsigned int g = f / n, r = f - g * n;
-    const T* src =
-        banked + (static_cast<unsigned long long>(g) * n * n + r) * rw;
     const long long line = idx[f];
     if (line < 0 || line >= n_lines) continue;
-    copy_frame(src, into + static_cast<unsigned long long>(line) * frame_words,
-               frame_words, rw, row0, wi0, drow, dwi, lane);
+    medusa::copy_frame<false>(
+        banked + (static_cast<unsigned long long>(g) * n * n + r) * rw,
+        into + static_cast<unsigned long long>(line) * frame_words,
+        frame_words, rw, at, lane);
   }
 }
 
@@ -100,16 +72,12 @@ extern "C" int medusa_scatter_burst(const void* banked, const void* idx,
                                     int word_bytes, void* stream) {
   const long long frames = groups * n;
   if (frames <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
-  // 32-bit frame numbers (up to one grid past the last) and offsets inside
-  // a frame's N x N rows
-  if (2 * frames + kWarps >= (1LL << 32) ||
-      static_cast<long long>(n) * n * w + 32 * kBatch >= (1LL << 32))
+  if (!medusa::frame_copy_fits(frames, n, w))
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned int blocks =
-      static_cast<unsigned int>((frames + kWarps - 1) / kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MEDUSA_DISPATCH_ROW_WORD(word_bytes,
-      scatter_burst_kernel<word_t><<<blocks, medusa::kThreads, 0, s>>>(
+      scatter_burst_kernel<word_t><<<medusa::frame_blocks(frames),
+                                     medusa::kThreads, 0, s>>>(
           static_cast<const word_t*>(banked),
           static_cast<const int32_t*>(idx), static_cast<word_t*>(into),
           n_lines, static_cast<unsigned int>(n),

@@ -20,9 +20,9 @@ Each wrapper takes its plain version (``*_plain``, index / where / permute
 on tensors) for a tensor on the CPU, launches its kernel for a CUDA tensor,
 and raises on anything it cannot take.  There is no fallback from the
 kernel to the plain version.  The kernels move machine words: a payload of
-any dtype is viewed as the unsigned word of its width (1, 2, 4 or 8 bytes),
-so one instance per width serves every dtype; the row copies view each
-payload row as the widest word dividing it (up to 16 bytes).
+any dtype is viewed as an unsigned word, so one instance per width serves
+every dtype; each wrapper views a payload row as the widest word (up to 16
+bytes) dividing its bytes and both buffers' alignment.
 
 Each kernel keeps a launch count (:func:`launch_counts`, kept for every
 kernel of the port in :mod:`repro_torch.kernels.launch`), incremented where
@@ -42,9 +42,10 @@ from repro_torch.kernels import launch as kl
 from repro_torch.kernels.launch import (launch_counts,  # noqa: F401
                                         reset_launch_counts)
 
-# C signatures: (src, idx, dst, n_lines, N, count, W, word_bytes, stream)
-# for the sparse kernels (the scatter's W in row words of up to 16 bytes),
-# (src, dst, N, row words, row word bytes, stream) for the dense
+# C signatures: (src, idx, dst, n_lines, N, count, row words, row word
+# bytes, stream) for the sparse kernels (count: the gather's frames, the
+# scatter's groups), (src, dst, N, row words, row word bytes, stream) for
+# the dense
 _SPARSE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -79,9 +80,17 @@ def gather_burst_plain(lines: torch.Tensor, idx: torch.Tensor,
 def gather_burst_network_tiles(lines: torch.Tensor, idx: torch.Tensor,
                                n_ports: int) -> torch.Tensor:
     """Fused gather + read network: pool lines ``[L, N, W]`` and frame
-    indices ``idx int32 [K]`` (K a multiple of N; entries outside ``[0,
-    L)`` are sentinels) → banked ``[K//N, N, N, W]`` with ``out[g, y, p] =
-    lines[idx[g*N + p], y]``, zero frames at sentinels."""
+    indices ``idx int32 [K]`` (K a multiple of N) → banked ``[K//N, N, N,
+    W]`` with ``out[g, y, p] = lines[idx[g*N + p], y]``, zero frames at
+    sentinels.
+
+    Every index outside ``[0, L)``, negative ones included, is a sentinel
+    here.  The reference takes only indices ``>= L`` as sentinels and wraps
+    a negative index as Python indexing does; no caller emits one
+    (``page_live_plan`` refuses a table that would, and the fabric's
+    sentinel is ``FRAME_SENTINEL = 2**30``).  The kernel copies whole
+    frames, each row moved as the widest word (up to 16 bytes) dividing its
+    bytes and both buffers' alignment."""
     n = n_ports
     if lines.ndim != 3 or lines.shape[1] != n or idx.shape[0] % n:
         raise ValueError(f"bad gather burst: lines {tuple(lines.shape)}, "
@@ -90,15 +99,17 @@ def gather_burst_network_tiles(lines: torch.Tensor, idx: torch.Tensor,
     if lines.device.type == "cpu" and idx.device.type == "cpu":
         return gather_burst_plain(lines, idx, n)
     kl.check_cuda("gather_burst_network_tiles", lines=lines, idx=idx)
-    wb = kl.word_bytes(lines, "gather_burst_network_tiles")
+    kl.word_bytes(lines, "gather_burst_network_tiles")
     l, _, w = lines.shape
     k = idx.shape[0]
     out = torch.empty((k // n, n, n, w), dtype=lines.dtype,
                       device=lines.device)
+    wb = kl.row_word(lines, out)
     fn = kl.bind("gather_burst", "medusa_gather_burst", _SPARSE_ARGS)
     kl.count("gather_burst_network_tiles")
-    kl.raise_on(fn(lines.data_ptr(), idx.data_ptr(), out.data_ptr(), l, n, k, w,
-                 wb, kl.stream(lines)), "gather_burst_network_tiles")
+    kl.raise_on(fn(lines.data_ptr(), idx.data_ptr(), out.data_ptr(), l, n, k,
+                   w * lines.element_size() // wb, wb, kl.stream(lines)),
+                "gather_burst_network_tiles")
     return out
 
 
@@ -123,8 +134,14 @@ def scatter_burst_network_tiles(banked: torch.Tensor, idx: torch.Tensor,
     """Fused write network + scatter: banked ``[G, N, N, W]`` → line frames
     written into the pool stream ``into [L, N, W]`` **in place** at rows
     ``idx int32 [G*N]`` (``into[idx[g*N + r], y] = banked[g, y, r]``);
-    sentinel entries (outside ``[0, L)``) drop, and rows no index names keep
-    their bytes.  Returns ``into``.
+    sentinel entries drop, and rows no index names keep their bytes.
+    Returns ``into``.
+
+    Every index outside ``[0, L)``, negative ones included, is a sentinel
+    here.  The reference takes only indices ``>= L`` as sentinels and wraps
+    a negative index as Python indexing does; no caller emits one
+    (``page_live_plan`` refuses a table that would, and the fabric's
+    sentinel is ``FRAME_SENTINEL = 2**30``).
 
     Live indices must be unique — the page pool never maps a physical frame
     twice.  The kernel's blocks run concurrently, so with a duplicate the

@@ -1,12 +1,12 @@
 """The routes of the port's redesigned kernels on the CPU: which kernel
 ``stream_matmul.route`` picks for each dtype, shape and alignment, the plain
 version against the reference's oracle at each route's boundary, the dense
-burst (``burst_network_tiles``) and the write-side burst
-(``scatter_burst_network_tiles``) viewed as row copies of the widest word
-dividing each row and both buffers' alignment, and the plain versions of
-the write-side burst and the layout engine (``medusa_transpose_tiles``)
-against the reference's Pallas kernels in interpret mode on both sides of
-the 16-byte row word.
+burst (``burst_network_tiles``) and the read- and write-side bursts
+(``gather_burst_network_tiles``, ``scatter_burst_network_tiles``) viewed as
+row copies of the widest word dividing each row and both buffers'
+alignment, and the plain versions of both sparse bursts and of the layout
+engine (``medusa_transpose_tiles``) against the reference's Pallas kernels
+in interpret mode on both sides of the 16-byte row word.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 Matmuls: float32 within rtol 1e-5 (atol 1e-4), bf16 within one bf16 ulp of
@@ -178,12 +178,109 @@ def test_burst_network_matches_pallas_off_16_byte_rows(n, dt, w):
 
 
 # ----------------------------------------------------------------------------
-# kernels 2 and 4: the write-side burst and the layout engine as row copies
+# kernels 1, 2 and 4: the sparse bursts and the layout engine as row copies
 # ----------------------------------------------------------------------------
 
 def _signed(a):
     return a.view({np.uint8: np.uint8, np.uint16: np.int16,
                    np.uint32: np.int32}[a.dtype.type])
+
+
+@pytest.mark.parametrize("dtype,w,off,want", [
+    (torch.int32, 32, 0, 16),        # stablelm-1.6b's 128-byte rows
+    (torch.int32, 128, 0, 16),       # gemma3-4b's 512-byte rows
+    (torch.int32, 32, 1, 4),         # lines 4 bytes off
+    (torch.int32, 32, 2, 8),         # 8 bytes off
+    (torch.int32, 32, 3, 4),         # 12 bytes off
+    (torch.int16, 64, 1, 2),         # 2 bytes off
+    (torch.int16, 3, 0, 2),          # 6-byte rows
+    (torch.uint8, 5, 0, 1),          # 5-byte rows
+    (torch.int32, 1, 0, 4),          # 4-byte rows
+])
+def test_row_word_on_gather_operands(dtype, w, off, want):
+    """The gather's row word divides the row's bytes and the alignment of
+    ``lines`` and of the fresh ``out``: frame offsets are whole rows, so
+    every word the kernel moves stays aligned."""
+    n, lines, k = 4, 8, 8
+    base = torch.zeros(off + lines * n * w, dtype=dtype)
+    src = base[off:].view(lines, n, w)
+    out = torch.empty((k // n, n, n, w), dtype=dtype)
+    assert out.data_ptr() % 16 == 0
+    assert kl.row_word(src, out) == want
+    assert (w * src.element_size()) % want == 0
+
+
+def _gather_check(lines, idx, n, dt, tl):
+    """The Pallas gather on ``lines`` against the plain version and the CPU
+    wrapper on ``tl`` (the same words), bit for bit; sentinel frames are
+    zeros."""
+    want = np.asarray(jmt.gather_burst_network_tiles(
+        jnp.asarray(lines), jnp.asarray(idx), n))
+    ti = torch.from_numpy(idx)
+    for got in (tmt.gather_burst_plain(tl, ti, n),
+                tmt.gather_burst_network_tiles(tl, ti, n)):
+        assert got.is_contiguous() and tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(got.numpy().view(dt), want)
+    sentinel = (idx < 0) | (idx >= lines.shape[0])
+    assert sentinel.any()
+    frames = want.transpose(0, 2, 1, 3).reshape((len(idx),) + lines.shape[1:])
+    assert not frames[sentinel].any()
+    np.testing.assert_array_equal(frames[~sentinel], lines[idx[~sentinel]])
+
+
+# (N, word, W): rows of 16-byte multiples (the 16-byte row word) and rows
+# that are not (narrower words), at N = 1, 4, 8 and 32
+GATHER_CASES = [(1, np.uint32, 4), (1, np.uint16, 3), (4, np.uint32, 4),
+                (4, np.uint32, 128), (4, np.uint16, 3), (4, np.uint8, 5),
+                (8, np.uint32, 1), (8, np.uint16, 8), (32, np.uint32, 32),
+                (32, np.uint16, 5), (32, np.uint8, 16)]
+
+
+@pytest.mark.parametrize("n,dt,w", GATHER_CASES)
+def test_gather_plain_matches_pallas_at_row_word_boundaries(n, dt, w):
+    """Groups of live frames, of live frames mixed with sentinels (L and
+    2^30) and of sentinels only: the plain version and the wrapper on the
+    CPU equal the Pallas kernel bit for bit, with zero frames at the
+    sentinels."""
+    rng = np.random.default_rng(n * 103 + w * 5 + np.dtype(dt).itemsize)
+    n_lines = 6 * n
+    perm = rng.permutation(n_lines)
+    ar = np.arange(n)
+    mixed = np.where(ar % 2 == 0, perm[2 * n:3 * n],
+                     np.where(ar % 4 == 1, n_lines, 2 ** 30))
+    sentinels = np.where(ar % 2 == 0, 2 ** 30, n_lines)
+    idx = np.concatenate([perm[:n], mixed, sentinels,
+                          perm[n:2 * n]]).astype(np.int32)
+    lines = _words(rng, (n_lines, n, w), dt)
+    tl = torch.from_numpy(_signed(lines)).clone()
+    row = w * np.dtype(dt).itemsize
+    out = torch.empty((len(idx) // n, n, n, w), dtype=tl.dtype)
+    assert kl.row_word(tl, out) == max(b for b in (1, 2, 4, 8, 16)
+                                       if row % b == 0)
+    _gather_check(lines, idx, n, dt, tl)
+
+
+@pytest.mark.parametrize("off,want", [(1, 4), (2, 8), (3, 4)])
+def test_gather_plain_on_views_off_alignment(off, want):
+    """``lines`` as a view 1-3 words off 16-byte alignment (the row copy
+    then moves 4- or 8-byte words): the Pallas kernel's frames, and the
+    same as from an aligned copy."""
+    n, w, n_lines = 4, 8, 20
+    rng = np.random.default_rng(17 + off)
+    idx = np.concatenate([rng.permutation(n_lines)[:2 * n],
+                          np.full(n, n_lines),
+                          np.full(n, 2 ** 30)]).astype(np.int32)
+    lines = _words(rng, (n_lines, n, w), np.uint32)
+    base = torch.zeros(off + lines.size, dtype=torch.int32)
+    tl = base[off:].view(lines.shape)
+    tl.copy_(torch.from_numpy(_signed(lines)))
+    assert tl.data_ptr() % 16 == 4 * off
+    out = torch.empty((len(idx) // n, n, n, w), dtype=torch.int32)
+    assert kl.row_word(tl, out) == want
+    _gather_check(lines, idx, n, np.uint32, tl)
+    np.testing.assert_array_equal(
+        tmt.gather_burst_network_tiles(tl, torch.from_numpy(idx), n).numpy(),
+        tmt.gather_burst_plain(tl.clone(), torch.from_numpy(idx), n).numpy())
 
 
 @pytest.mark.parametrize("dtype,w,off_b,off_i,want", [
