@@ -17,10 +17,14 @@ Phases (any fault exits non-zero):
    bursts: N=32 ports, W=32 32-bit words, 24 layers of a 2048-frame pool;
    the gemma3-4b engine's: N=4, W=128, 5 layers of a 6400-frame pool; the
    gemma3-4b one-shot's layout engine: K/V leaves [4, 1600, 4, 256] and
-   [4, 1024, 4, 256] bf16) and at edge cases (sentinels, sentinel-only
-   groups, N from 1 to 32, 8/16/64-bit words, rows off 16-byte multiples,
-   ragged R and C, W=1, NaN payloads and -0.0, views off 16-byte
-   alignment, the dense burst applied twice), the gather, the scatter and
+   [4, 1024, 4, 256] bf16; the starcoder2-15b engine's bursts: N=4, W=64,
+   40 layers of a 6400-frame pool, its dense and padded tile [4, 4,
+   8192000]; the gemma3-12b engine's: N=8, W=128, 8 layers of a 6400-frame
+   pool; the layout engine at starcoder2-15b's [4, 1600, 4, 128] leaf and
+   gemma3-12b's ring leaf [4, 1024, 8, 256]) and at edge cases
+   (sentinels, sentinel-only groups, N from 1 to 32, 8/16/64-bit words,
+   rows off 16-byte multiples, ragged R and C, W=1, NaN payloads and
+   -0.0, views off 16-byte alignment, the dense burst applied twice), the gather, the scatter and
    the layout engine launched twice for the same bits, the gather's
    sentinel frames read as zeros; then time kernel, plain version
    and one PyTorch library call (the yardstick the port never calls), CUDA
@@ -56,9 +60,26 @@ Phases (any fault exits non-zero):
    again with the kernels off and on the crossbar fabric — tokens and
    every step's logits must be bit-identical; (b) the engine on both decode
    paths, equal tokens, no layout-engine launch;
-7. card vs CPU — the stablelm and gemma3 smoke configs in float32 agree
+7. starcoder2 — full-width starcoder2-15b (40 layers, 4 KV heads = N
+   ports, ~31 GB of random bf16 weights from a seed), 4 requests of 1536
+   tokens through the engine on every path of the dense family: (a) the
+   fused gather, 64 tokens; 16 tokens each on (b) the pad layout with the
+   gather after the burst, (c) the dense per-slot layout, (d) the per-leaf
+   splice admission, (e) the fused fabric and (f) a medusa fabric off the
+   port-per-KV-head geometry (kernel 4 per leaf per layer); equal tokens on
+   the common prefix, each path's launch counts, median step and peak
+   memory;
+8. gemma3-12b — full width (48 layers, 8 KV heads, ~24 GB), 4 requests of
+   1536 tokens, 32 generated: the fused-gather engine (kernels 1-2 at
+   N=8) and the one-shot generate (kernel 4, 96 launches a step) serve
+   equal tokens;
+9. serve_fsdp — the full-width stablelm-1.6b engine with the weights
+   streamed through each step's read burst (one kernel-3 launch a step):
+   tokens equal to the same engine's without it, the weight words per step
+   checked; then kernel 3 at that weight tile;
+10. card vs CPU — the stablelm and gemma3 smoke configs in float32 agree
    between the card and the CPU within 1e-4 (engine step; gemma3 one-shot);
-8. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+11. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
    bytes or by operations, at that path's shapes; a matmul's entry also
    names its route), the card line again, and the ``{"ok": true, ...}``
@@ -120,10 +141,21 @@ KERNELS = {
 # serving runs: batch, prompt (past the 1024 window), generated
 ENGINE_SLOTS, STABLELM_PROMPT = 4, 448
 GEMMA_BATCH, GEMMA_PROMPT, GEMMA_GEN = 4, 1536, 64
+# the rest of the dense family: starcoder2-15b's prompt and generated tokens
+# on its main path and on its other paths; gemma3-12b's generated tokens
+# (its prompt is GEMMA_PROMPT); the stablelm-1.6b serve_fsdp engine's
+STARCODER_PROMPT, STARCODER_GEN, STARCODER_SHORT = 1536, 64, 16
+GEMMA12_GEN, FSDP_GEN = 32, 16
 # the kernels line's path of the layout engine (the engines' paths are
 # "<arch> engine", kernels 5-7's "interconnect: <operand>")
 ONE_SHOT = "gemma3-4b one-shot"
 INTERCONNECT = "interconnect"
+# the dense family's paths of kernel 4: starcoder2-15b's engine on a medusa
+# fabric off the port-per-KV-head geometry (the per-layer paged decode), and
+# gemma3-12b's one-shot generate
+SC_FALLBACK = "starcoder2-15b paged fallback"
+ONE_SHOT_12B = "gemma3-12b one-shot"
+FSDP = "stablelm-1.6b serve_fsdp"
 ZERO_LAUNCHES = {name: 0 for name in KERNELS}
 
 
@@ -533,6 +565,28 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     return rows
 
 
+def leaf_row(torch, words, shape, flush, what: str) -> dict:
+    """Kernel 4 at one served K/V leaf ``shape`` (bf16): held bit for bit
+    against its plain version and a second launch, then timed out of a
+    flushed L2 beside the plain version and one library call."""
+    from repro_torch.kernels import medusa_transpose as mt
+
+    x = words(shape, torch.int16).view(torch.bfloat16)
+    got = mt.medusa_transpose_tiles(x)
+    err = words_equal(torch, got, mt.medusa_transpose_plain(x),
+                      f"transpose ({what})")
+    words_equal(torch, mt.medusa_transpose_tiles(x), got,
+                f"transpose ({what}) launched again")
+    return dict(
+        max_abs_err=err, bytes=2 * x.numel() * 2,
+        ms=time_ms(torch, lambda: mt.medusa_transpose_tiles(x), flush=flush),
+        plain_ms=time_ms(torch, lambda: mt.medusa_transpose_plain(x),
+                         flush=flush),
+        library_ms=time_ms(torch, lambda: x.transpose(1, 2).contiguous(),
+                           flush=flush),
+        shape=f"{list(shape)} bf16 ({what})")
+
+
 def kernels_phase(torch, dev):
     """Kernel-vs-plain comparisons and timings; returns the rows of the
     kernels line by path (launch counts filled in by the serve phases)."""
@@ -580,6 +634,29 @@ def kernels_phase(torch, dev):
     #    the 68 launches per step), the full-attention leaf is printed ------
     leaves = transpose_rows(torch, dev, gen, words)
     rows[ONE_SHOT] = {"medusa_transpose_tiles": leaves["L"]}
+
+    # -- the rest of the dense family: kernels 1-3 at starcoder2-15b's
+    #    served pool (N=4, head_dim 128; its dense tile is the one the pad
+    #    layout and the gather-after-burst path move), kernels 1-2 at
+    #    gemma3-12b's (N=8, head_dim 256: its engine runs the fused gather
+    #    only); kernel 4 at starcoder2-15b's paged-fallback leaf (the
+    #    off-geometry fabric's N=64 rounds the depth to 1600) and at
+    #    gemma3-12b's ring leaf (80 of its 96 launches a step) -------------
+    rows["starcoder2-15b engine"] = burst_rows(
+        torch, gen, words, "starcoder2-15b", STARCODER_PROMPT, STARCODER_GEN)
+    g12 = burst_rows(torch, gen, words, "gemma3-12b", GEMMA_PROMPT,
+                     GEMMA12_GEN)
+    del g12["burst_network_tiles"]
+    rows["gemma3-12b engine"] = g12
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    t_fallback = -(-(STARCODER_PROMPT + STARCODER_SHORT) // 64) * 64
+    rows[SC_FALLBACK] = {"medusa_transpose_tiles": leaf_row(
+        torch, words, (ENGINE_SLOTS, t_fallback, 4, 128), flush,
+        "starcoder2-15b K/V leaf")}
+    rows[ONE_SHOT_12B] = {"medusa_transpose_tiles": leaf_row(
+        torch, words, (GEMMA_BATCH, 1024, 8, 256), flush,
+        "gemma3-12b ring leaf")}
+    del flush
     torch.cuda.synchronize()
     for path, name, r in ([(p, k, r) for p, by in rows.items()
                            for k, r in by.items()]
@@ -911,14 +988,15 @@ def interconnect_phase(torch, dev):
     return rows
 
 
-def serve(torch, cfg, params, prompts, fused: bool, gen_len: int):
-    """Serve ``prompts`` through the port's engine; returns the token
-    streams, per-step wall times (synchronised) and the engine."""
+def serve(torch, cfg, params, prompts, gen_len: int, **engine_kw):
+    """Serve ``prompts`` through the port's engine (``engine_kw`` passed
+    on); returns the token streams, per-step wall times (synchronised) and
+    the engine."""
     from repro_torch.serving import Request, ServingEngine
 
     t_max = prompts.shape[1] + gen_len
     eng = ServingEngine(cfg, params, max_slots=len(prompts), t_max=t_max,
-                        fused_gather=fused, check_pool=True)
+                        check_pool=True, **engine_kw)
     reqs = [Request(i, prompts[i], max_new_tokens=gen_len)
             for i in range(len(prompts))]
     for r in reqs:
@@ -1042,7 +1120,8 @@ def engine_paths(torch, cfg, params, prompts, rows, leaf_shape, label):
     runs = {}
     for fused in (True, False):
         mt.reset_launch_counts()
-        toks, steps, eng = serve(torch, cfg, params, prompts, fused, 64)
+        toks, steps, eng = serve(torch, cfg, params, prompts, 64,
+                                 fused_gather=fused)
         counts = mt.launch_counts()
         fs, kv = eng.fabric_stats, eng.kv
         kind, i = eng.kv.paged_entries[0]
@@ -1100,7 +1179,8 @@ def crossbar_engine(torch, cfg, params, prompts, medusa, label):
 
     xcfg = dataclasses.replace(cfg, kv_layout="crossbar")
     mt.reset_launch_counts()
-    toks, steps, eng = serve(torch, xcfg, params, prompts, True, 64)
+    toks, steps, eng = serve(torch, xcfg, params, prompts, 64,
+                             fused_gather=True)
     counts = mt.launch_counts()
     check(counts == ZERO_LAUNCHES,
           f"{label} crossbar engine launched Medusa kernels: {counts}")
@@ -1250,6 +1330,266 @@ def gemma_phase(torch, dev, rows, with_profile: bool):
     torch.cuda.empty_cache()
 
 
+def engine_run(torch, cfg, params, prompts, gen_len: int, label: str,
+               want: dict, **engine_kw):
+    """Serve ``prompts`` (``gen_len`` tokens each, one admission wave)
+    through the engine with ``engine_kw``: launch counts reset just before
+    and read just after (they must be ``want``), the peak memory reset
+    before; checks every request decoded ``gen_len`` tokens inside the
+    vocab and the last logits are finite.  Prints the median decode step,
+    each kernel's launches per decode step and the peak memory.  Returns
+    the token streams, the median decode step (s), the launch counts and
+    the engine's fabric counters."""
+    from repro_torch.kernels import medusa_transpose as mt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    toks, steps, eng = serve(torch, cfg, params, prompts, gen_len,
+                             **engine_kw)
+    counts = mt.launch_counts()
+    decode_steps = eng.step_count
+    check(decode_steps == gen_len - 1,
+          f"{label}: {decode_steps} decode steps, not {gen_len - 1}")
+    check(counts == {**ZERO_LAUNCHES, **want},
+          f"{label}: launches {counts} != {want}")
+    check(all(len(t) == gen_len for t in toks), f"{label}: short streams")
+    check(all(0 <= t < cfg.vocab_size for s in toks for t in s),
+          f"{label}: token outside the vocab")
+    check(bool(torch.isfinite(eng.last_logits).all()),
+          f"{label}: non-finite logits")
+    med = statistics.median(steps[1:])
+    per_step = {k: v / decode_steps for k, v in counts.items() if v}
+    print(f"{label}: median decode step {med * 1e3:.3f} ms over "
+          f"{decode_steps - 1} steps; admission step {steps[0] * 1e3:.1f} "
+          f"ms; launches per decode step {per_step}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    stats = eng.fabric_stats
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, med, counts, stats
+
+
+def load_model(torch, dev, arch: str):
+    """``arch`` at full width, random bf16 weights from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"serve: {arch} full width ({cfg.param_count()} params, bf16) "
+          f"initialised in {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    return cfg, params
+
+
+def free_model(torch, label: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: freed; {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB still allocated", flush=True)
+
+
+def starcoder2_phase(torch, dev, rows) -> None:
+    """starcoder2-15b at full width (40 layers, d_model 6144, 48 heads, 4
+    KV heads = N ports, head_dim 128, d_ff 24576, vocab 49152, gelu, ln,
+    tied) through the engine on every path of the dense family, the same
+    four prompts of 1536 tokens: (a) the fused gather (kernels 1-2), 64
+    tokens; then 16 tokens each on (b) the pad layout with the gather
+    after the burst (kernel 3 on the padded tile), (c) the dense per-slot
+    layout (kernel 3), (d) the per-leaf splice admission, (e) the fused
+    fabric (the per-layer paged decode attending line-major, no kernel)
+    and (f) a medusa fabric off the port-per-KV-head geometry (the
+    per-layer paged decode, kernel 4 per leaf per layer).  Tokens must be
+    equal across the paths on their common prefix."""
+    from repro_torch.configs.base import FabricConfig
+    from repro_torch.data import SyntheticLM
+
+    cfg, params = load_model(torch, dev, "starcoder2-15b")
+    prompts = SyntheticLM(cfg, batch=ENGINE_SLOTS, seq=STARCODER_PROMPT,
+                          seed=0).batch_at(0)["tokens"]
+    fab = cfg.resolved_fabric
+    pad = dataclasses.replace(
+        cfg, fabric=dataclasses.replace(fab, pack="pad"))
+    off_geometry = dataclasses.replace(cfg, fabric=FabricConfig(
+        n_ports=cfg.n_kv_heads * cfg.resolved_head_dim // 8, lane_width=8))
+    long, short = STARCODER_GEN - 1, STARCODER_SHORT - 1
+    sparse = {"gather_burst_network_tiles": 2 * short,
+              "scatter_burst_network_tiles": 2 * short}
+    paths = (
+        ("a", "fused gather", cfg, STARCODER_GEN, {},
+         {"gather_burst_network_tiles": 2 * long,
+          "scatter_burst_network_tiles": 2 * long + 2}),
+        ("b", "pad layout, gather after the burst", pad, STARCODER_SHORT,
+         dict(fused_gather=False), {"burst_network_tiles": 2 * short + 1}),
+        ("c", "dense per-slot layout", cfg, STARCODER_SHORT,
+         dict(paged_pool=False), {"burst_network_tiles": 2 * short}),
+        ("d", "per-leaf splice admission", cfg, STARCODER_SHORT,
+         dict(prefill_burst=False), sparse),
+        ("e", "fused fabric", dataclasses.replace(cfg, kv_layout="fused"),
+         STARCODER_SHORT, {}, {}),
+        ("f", "medusa fabric off the geometry (N=64, W_acc=8)",
+         off_geometry, STARCODER_SHORT, {},
+         {"medusa_transpose_tiles": 2 * cfg.n_layers * short}))
+    main = None
+    for key, what, pcfg, gen_len, kw, want in paths:
+        label = f"starcoder2-15b engine ({key}) {what}"
+        toks, _, counts, stats = engine_run(torch, pcfg, params, prompts,
+                                            gen_len, label, want, **kw)
+        for path in ("starcoder2-15b engine", SC_FALLBACK):
+            for name, r in rows[path].items():
+                r["launches"] = r.get("launches", 0) + counts[name]
+        if key == "b":
+            print(f"{label}: {stats.words_moved} words moved, "
+                  f"{stats.words_padded} padded (K and V are equally wide)",
+                  flush=True)
+        if main is None:
+            main = toks
+        else:
+            check(all(t == m[:gen_len] for t, m in zip(toks, main)),
+                  f"{label}: tokens differ from path (a)'s on their common "
+                  f"prefix")
+    print(f"starcoder2-15b: tokens equal across paths (a)-(f) on their "
+          f"first {STARCODER_SHORT}", flush=True)
+    del params
+    free_model(torch, "starcoder2-15b")
+
+
+def gemma3_12b_phase(torch, dev, rows) -> None:
+    """gemma3-12b at full width (48 layers ``LLLLLA``, d_model 3840, 8 KV
+    heads = N ports, head_dim 256, d_ff 15360, vocab 262144, window 1024):
+    4 requests of 1536 tokens through the engine with the fused gather
+    (kernels 1-2 at N=8), then the one-shot ``greedy_generate`` of the same
+    prompts with the kernels on (kernel 4, 96 launches a step).  The two
+    must serve the same tokens."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.models import api
+
+    cfg, params = load_model(torch, dev, "gemma3-12b")
+    b, s, g = GEMMA_BATCH, GEMMA_PROMPT, GEMMA12_GEN
+    prompts = SyntheticLM(cfg, batch=b, seq=s, seed=0).batch_at(0)["tokens"]
+    toks_e, med_e, counts, _ = engine_run(
+        torch, cfg, params, prompts, g, "gemma3-12b engine (fused gather)",
+        {"gather_burst_network_tiles": 2 * (g - 1),
+         "scatter_burst_network_tiles": 2 * (g - 1) + 2})
+    for name, r in rows["gemma3-12b engine"].items():
+        r["launches"] = r.get("launches", 0) + counts[name]
+
+    # the one-shot: the prefill's token is fed in, the g - 1 decode steps'
+    # tokens come back (the engine's first token is the prefill's)
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    prompt = torch.as_tensor(prompts, device=dev)
+    toks, logits, steps = generate(torch, api, params, prompt, cfg, g - 1,
+                                   s + g)
+    counts = mt.launch_counts()
+    per_step = 2 * cfg.n_layers
+    want = {**ZERO_LAUNCHES, "medusa_transpose_tiles": per_step * (g - 1)}
+    check(counts == want, f"gemma3-12b one-shot: launches {counts} != "
+          f"{want}")
+    rows[ONE_SHOT_12B]["medusa_transpose_tiles"]["launches"] = counts[
+        "medusa_transpose_tiles"]
+    check(all(bool(torch.isfinite(lg).all()) for lg in logits),
+          "gemma3-12b one-shot: non-finite logits")
+    print(f"gemma3-12b one-shot (kernels on): median decode step "
+          f"{statistics.median(steps) * 1e3:.3f} ms over {len(steps)} "
+          f"steps; {per_step} layout-engine launches per step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    got = toks.tolist()
+    check(all(o == e[1:] for o, e in zip(got, toks_e)),
+          "gemma3-12b: the engine and the one-shot served other tokens")
+    print(f"gemma3-12b: engine and one-shot tokens equal ({b} x {g - 1} "
+          f"decoded); engine median step {med_e * 1e3:.3f} ms", flush=True)
+    del params, logits
+    free_model(torch, "gemma3-12b")
+
+
+def fsdp_phase(torch, dev, rows) -> None:
+    """stablelm-1.6b at full width through the fused-gather engine with
+    ``serve_fsdp``: every weight leaf whose size divides N² rides the
+    decode step's read burst (one kernel-3 launch a step for the packed
+    weight tile) and the step computes with what comes back.  Tokens must
+    equal the same engine's without the stream; the weight words per step
+    must be the streamed leaves' sizes.  Then kernel 3 at that weight tile,
+    bit for bit against its plain version and timed."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.models import lm
+
+    cfg, params = load_model(torch, dev, "stablelm-1.6b")
+    prompts = SyntheticLM(cfg, batch=ENGINE_SLOTS, seq=STABLELM_PROMPT,
+                          seed=0).batch_at(0)["tokens"]
+    g = FSDP_GEN
+    n = cfg.resolved_fabric.n_ports
+    sparse = {"gather_burst_network_tiles": 2 * (g - 1),
+              "scatter_burst_network_tiles": 2 * (g - 1) + 2}
+    base, _, _, base_stats = engine_run(
+        torch, cfg, params, prompts, g, "stablelm-1.6b engine (fused gather)",
+        sparse)
+    fcfg = dataclasses.replace(cfg, serve_fsdp=True)
+    toks, med, counts, stats = engine_run(
+        torch, fcfg, params, prompts, g,
+        "stablelm-1.6b engine (fused gather, serve_fsdp)",
+        {**sparse, "burst_network_tiles": g - 1})
+    check(toks == base, "serve_fsdp served other tokens than the same "
+          "engine without the weight stream")
+    # the streamed leaves, in the reference's tree order, from a model on
+    # the meta device (shapes only)
+    sizes = [sum(pdict[name].numel() for pdict, name in slots)
+             for slots in lm._weight_slots(lm.LM(cfg, torch.device("meta")))]
+    streamed = [x for x in sizes if x % (n * n) == 0]
+    per_step = (stats.words_moved - base_stats.words_moved) // (g - 1)
+    check(per_step == sum(streamed),
+          f"serve_fsdp: {per_step} weight words a step, not the streamed "
+          f"leaves' {sum(streamed)}")
+    rows[FSDP] = {"burst_network_tiles": {"launches": counts[
+        "burst_network_tiles"]}}
+    print(f"stablelm-1.6b serve_fsdp: tokens equal to the engine without "
+          f"it; {len(streamed)} of {len(sizes)} weight leaves streamed, "
+          f"{per_step} bf16 words ({per_step * 2 / 1e9:.3f} GB) and "
+          f"{counts['burst_network_tiles'] / (g - 1):.0f} kernel-3 launch "
+          f"per decode step", flush=True)
+    del params
+    free_model(torch, "stablelm-1.6b serve_fsdp")
+
+    # kernel 3 at the weight tile: bf16 pairs folded into 32-bit words
+    check(all((x // (n * n)) % 2 == 0 for x in streamed),
+          "a streamed leaf's width is odd: the tile would not fold")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    info = torch.iinfo(torch.int32)
+    tile = torch.randint(info.min, info.max,
+                         (n, n, sum(streamed) // (n * n) // 2),
+                         generator=gen, device=dev, dtype=torch.int32)
+    got = mt.burst_network_tiles(tile, n)
+    err = bit_equal(torch, got, mt.burst_network_plain(tile, n),
+                    "burst (serve_fsdp weight tile)")
+    check(torch.equal(mt.burst_network_tiles(got, n), tile),
+          "burst (serve_fsdp weight tile) is not an involution")
+    del got
+    r = rows[FSDP]["burst_network_tiles"]
+    r.update(max_abs_err=err, bytes=2 * tile.numel() * 4,
+             ms=time_ms(torch, lambda: mt.burst_network_tiles(tile, n)),
+             plain_ms=time_ms(torch, lambda: mt.burst_network_plain(tile,
+                                                                     n)),
+             library_ms=time_ms(torch,
+                                lambda: tile.transpose(0, 1).contiguous()),
+             shape=f"tile {list(tile.shape)} int32")
+    set_bound(r)
+    print_row("burst_network_tiles", FSDP, r)
+    del tile
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def card_vs_cpu(torch, dev):
     """The smoke configs in float32, the same parameters on both devices:
     first-step logits within 1e-4 (engine step; gemma3 also one-shot)."""
@@ -1356,6 +1696,9 @@ def main() -> None:
     rows.update(interconnect_phase(torch, dev))
     stablelm_phase(torch, dev, rows, args.profile)
     gemma_phase(torch, dev, rows, args.profile)
+    starcoder2_phase(torch, dev, rows)
+    gemma3_12b_phase(torch, dev, rows)
+    fsdp_phase(torch, dev, rows)
     card_vs_cpu(torch, dev)
 
     # one entry per kernel and path: its launches on that path's runs, its

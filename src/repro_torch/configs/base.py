@@ -39,8 +39,9 @@ class FabricConfig:
 
     ``n_ports`` is N = W_line / W_acc, ``lane_width`` the per-port word
     width W_acc in elements.  ``impl`` selects the data-transfer network
-    ("medusa" exchange network, the "crossbar" baseline or the "oracle"
-    permute; "fused" is ported in a later slice).  ``page_size`` is the KV-cache
+    ("medusa" exchange network, the "crossbar" baseline, the "oracle"
+    permute, or "fused": consumers contract against the line-major cache
+    and KV traffic is never banked).  ``page_size`` is the KV-cache
     page in timesteps, ``pack`` the burst layout, ``word_fold`` the
     machine-word lane folding cap, ``paged_pool``/``fused_gather`` the
     serving engine's KV storage and where its page gather runs.  The

@@ -9,7 +9,9 @@ import importlib
 from repro_torch.configs.base import FabricConfig, ModelConfig
 
 ARCHS = {
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
 }
 

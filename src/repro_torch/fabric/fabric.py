@@ -1,6 +1,6 @@
 """The ``Fabric``: one object for every memory movement (port of
-``repro.fabric.fabric``: the ``medusa``, ``crossbar`` and ``oracle``
-impls).
+``repro.fabric.fabric``: the ``medusa``, ``crossbar``, ``oracle`` and
+``fused`` impls).
 
 :meth:`Fabric.read`/:meth:`Fabric.write` are the paper's two data-transfer
 networks (§III-A); :meth:`Fabric.read_burst`/:meth:`Fabric.write_burst` are
@@ -14,8 +14,11 @@ runs report the same counters as the card.
 
 The ``crossbar`` impl is the paper's traditional interconnect (§II),
 :mod:`repro_torch.core.baseline`: every movement routes through an explicit
-index tensor.  All impls are value-identical.  The ``fused`` impl is not
-ported yet (ROADMAP §1 item 2).
+index tensor.  The ``fused`` impl banks no KV traffic: its consumers
+contract against the line-major cache directly, so it has no layout
+engine (:meth:`Fabric.kv_port_major` refuses it, as the reference never
+calls it there) and its networks are the oracle's.  All impls are
+value-identical.
 """
 
 from __future__ import annotations
@@ -45,11 +48,6 @@ class Fabric:
     """A W_line ↔ N x W_acc memory-movement fabric with selectable network."""
 
     config: FabricConfig
-
-    def __post_init__(self):
-        if self.config.impl == "fused":
-            raise NotImplementedError(
-                "fabric impl 'fused' is not ported yet (ROADMAP §1 item 2)")
 
     @classmethod
     def for_model(cls, cfg) -> "Fabric":
@@ -120,7 +118,13 @@ class Fabric:
         layout-engine kernel launch for the whole batch (the reference
         vmaps one kernel call over B), or the plain swap with the kernels
         off; the crossbar gathers through an explicit index tensor; the
-        oracle impl takes the plain swap.  Each result is contiguous."""
+        oracle impl takes the plain swap.  Each result is contiguous.  The
+        ``fused`` fabric has no layout engine: its consumers contract the
+        line-major cache directly, and asking it to bank one raises."""
+        if self.impl == "fused":
+            raise ValueError(
+                "the fused fabric banks no KV: its consumers attend over the "
+                "line-major cache (models.common.cached_attention)")
         if self.impl == "medusa":
             return kops.kv_line_to_port(c)
         if self.impl == "crossbar":

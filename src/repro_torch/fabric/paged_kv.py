@@ -1,12 +1,12 @@
 """Paged KV-cache storage for the serving engine (port of
-``repro.fabric.paged_kv``: the shared physical page pool and its burst
-admission).
+``repro.fabric.paged_kv``: the shared physical page pool, its burst and
+splice admission, and the dense per-slot layout).
 
-Every full-attention leaf is one ``[reps, n_pages, page_size, Hkv, D]``
-physical region; a per-slot logical→physical table (:class:`PagePool`,
-``int32 [n_slots, pages_per_slot]``, ``-1`` = unmapped) indirects each
-slot's time axis into it.  Pages come from a free list at admission and
-decode growth and return to it at retirement.
+In pool mode every full-attention leaf is one ``[reps, n_pages,
+page_size, Hkv, D]`` physical region; a per-slot logical→physical table
+(:class:`PagePool`, ``int32 [n_slots, pages_per_slot]``, ``-1`` =
+unmapped) indirects each slot's time axis into it.  Pages come from a free
+list at admission and decode growth and return to it at retirement.
 
 Admission rides the fabric: :meth:`PagedKVCache.admit_wave` installs a
 wave of prompts through one write-burst flush.  Under the fused-gather
@@ -14,11 +14,17 @@ contract each paged leaf takes the whole wave as one scatter-indexed write
 stream that lands every prompt frame at its physical row, in place
 (:meth:`PagedKVCache._pool_install_fused`); otherwise dense ``prefill/*``
 write streams go through the network and their output is copied into the
-mapped pages (:meth:`PagedKVCache._pool_install`).  The leaves the pool
-does not back (a sliding-window layer's ring) stay per slot and are copied
-into the slot's row at admission (:meth:`PagedKVCache._splice_unpaged`).
-The per-leaf splice of slots whose extents miss the network geometry, and
-swap, are ported in later slices.
+mapped pages (:meth:`PagedKVCache._pool_install`).  A slot whose extents
+miss the write network's geometry — every slot with ``burst=False`` or on
+a fabric that does not bank — is spliced per leaf instead
+(``prefill_splices``).  The leaves the pool does not back (a
+sliding-window layer's ring) stay per slot and are copied into the slot's
+row at admission (:meth:`PagedKVCache._splice_unpaged`).
+
+In dense mode (``pool_pages == 0``) every leaf keeps a per-slot ``[..,
+max_slots, t_max, ..]`` reservation and admission splices the request into
+its row (:meth:`PagedKVCache._dense_splice`).  Swap is ported in a later
+slice.
 """
 
 from __future__ import annotations
@@ -35,9 +41,6 @@ from repro_torch.fabric.scheduler import (FRAME_SENTINEL as _SENTINEL,
 
 _SWAP_TODO = ("page swap is ported in a later slice (ROADMAP §1 item 3: "
               "swap_out/swap_in over swap/* streams)")
-_SPLICE_TODO = ("the per-leaf splice admission (slots off the write "
-                "network's geometry) is ported in a later slice (ROADMAP §1 "
-                "item 2)")
 
 
 @dataclasses.dataclass
@@ -145,25 +148,21 @@ class PagePool:
 
 
 class PagedKVCache:
-    """The batched decode-cache tree with paged admission and shared-pool
-    physical storage.
+    """The batched decode-cache tree with paged admission and (optionally)
+    shared-pool physical storage.
 
-    ``caches`` is what ``api.init_cache(..., pool_pages=...)`` built:
-    ``{"unit": [{"k", "v"}...], "tail": [...]}`` with pool leaves
-    ``[reps, n_pages, page_size, Hkv, D]`` for the ``paged_entries``, and
-    per-slot ring leaves ``[reps, max_slots, W, Hkv, D]`` (``[max_slots, W,
-    Hkv, D]`` in the tail) for the sliding-window layers.  The wrapper
-    keeps that structure; admission writes into it in place."""
+    ``caches`` is what ``api.init_cache(...)`` built: ``{"unit": [{"k",
+    "v"}...], "tail": [...]}``.  With ``pool_pages > 0`` the
+    ``paged_entries`` are pool leaves ``[reps, n_pages, page_size, Hkv,
+    D]``; every other leaf (all of them in dense mode) is per slot, ``[reps,
+    max_slots, T, Hkv, D]`` (``[max_slots, T, Hkv, D]`` in the tail).  The
+    wrapper keeps that structure; admission writes into it in place."""
 
     def __init__(self, caches, max_slots: int, t_max: int, page_size: int,
                  pool_pages: int = 0, paged_entries=(), fabric=None,
                  fused_gather: bool = False):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
-        if not pool_pages:
-            raise NotImplementedError(
-                "the dense per-slot KV reservation is ported in a later "
-                "slice (ROADMAP §1 item 2); pass pool_pages > 0")
         self.fused_gather = fused_gather
         self.caches = caches
         self.max_slots = max_slots
@@ -171,19 +170,23 @@ class PagedKVCache:
         self.table = PageTable(page_size=page_size,
                                pages_per_slot=-(-t_max // page_size),
                                n_slots=max_slots)
-        self.pool = PagePool(page_size, pool_pages,
-                             self.table.pages_per_slot, max_slots)
+        self.pool = (PagePool(page_size, pool_pages,
+                              self.table.pages_per_slot, max_slots)
+                     if pool_pages else None)
         self.paged_entries = tuple(paged_entries)
         self.fabric = fabric
         self.tokens_moved = 0
         self.tokens_moved_dense = 0
         self.prefill_bursts = 0
+        self.prefill_splices = 0
         self._dirty = np.full((max_slots,), -1, np.int64)
 
     # -- geometry / accounting -------------------------------------------------
     def page_table_device(self, device) -> torch.Tensor:
         """The logical→physical table as a device operand
         (``int32 [max_slots, pages_per_slot]``)."""
+        if self.pool is None:
+            raise ValueError("dense mode has no physical page table")
         return torch.from_numpy(self.pool.table.copy()).to(device)
 
     def _count_refill(self, slot: int, span: int) -> None:
@@ -197,18 +200,27 @@ class PagedKVCache:
 
     # -- admission -------------------------------------------------------------
     def admit_wave(self, entries: Sequence[Tuple[int, object, int]],
-                   stats: Optional[SchedulerStats] = None) -> None:
+                   stats: Optional[SchedulerStats] = None,
+                   burst: Optional[bool] = None) -> None:
         """Install a wave of admitted prompts, ``[(slot, req_cache,
-        n_tokens), ...]``, through one write-burst flush."""
+        n_tokens), ...]``.  Pool mode: one write-burst flush for the wave;
+        slots off the network geometry, and every slot with
+        ``burst=False`` or on a fabric that does not bank, splice per leaf.
+        Dense mode always splices."""
         plans = []
         for slot, req_cache, n_tokens in entries:
             inst_pages = self.table.pages_for(n_tokens)
             span = min(inst_pages * self.table.page_size, self.t_max)
             self._count_refill(slot, span)
             self.table.map(slot, n_tokens)
-            self.pool.ensure(slot, self.table.pages_for(n_tokens + 1))
+            if self.pool is not None:
+                self.pool.ensure(slot, self.table.pages_for(n_tokens + 1))
             plans.append((slot, req_cache, span))
-        self._pool_install(plans, stats=stats)
+        if self.pool is None:
+            for slot, req_cache, span in plans:
+                self._dense_splice(slot, req_cache, span)
+            return
+        self._pool_install(plans, stats=stats, burst=burst)
         for slot, req_cache, _ in plans:
             self._splice_unpaged(slot, req_cache)
 
@@ -220,12 +232,15 @@ class PagedKVCache:
     def extend(self, slot: int, pos: int) -> None:
         self.table.extend(slot, pos)
         self._dirty[slot] = max(int(self._dirty[slot]), pos)
-        self.pool.ensure(slot, self.table.pages_for(pos + 1))
+        if self.pool is not None:
+            self.pool.ensure(slot, self.table.pages_for(pos + 1))
 
     def free(self, slot: int) -> None:
-        """Retire the slot: its physical pages return to the free list."""
+        """Retire the slot: in pool mode its physical pages return to the
+        free list."""
         self.table.free(slot)
-        self.pool.release(slot)
+        if self.pool is not None:
+            self.pool.release(slot)
 
     def swap_out(self, slot: int, stats=None):
         raise NotImplementedError(_SWAP_TODO)
@@ -236,19 +251,39 @@ class PagedKVCache:
     # -- install paths ---------------------------------------------------------
     def _splice_unpaged(self, slot: int, req_cache) -> None:
         """Copy a request's non-paged leaves (its ring windows, batch 1)
-        into row ``slot`` of the engine's per-slot leaves, in place.  The
-        slot axis is the leaf's known one — 1 under the ``unit`` stack, 0
-        in the ``tail`` — not guessed from the shape (the reference takes
-        axis 1 whenever ``shape[1] == max_slots``, which misplaces a tail
-        ring whose window equals ``max_slots``)."""
-        paged = set(self.paged_entries)
+        into row ``slot`` of the engine's per-slot leaves, in place."""
+        self._splice_rows(slot, req_cache, skip=set(self.paged_entries))
+
+    def _dense_splice(self, slot: int, req_cache, span: int) -> None:
+        """Dense-mode install: copy the request's leaves into row ``slot``
+        of the per-slot leaves, in place; a K/V leaf with the full
+        ``t_max`` time axis takes only the first ``span`` timesteps (the
+        row's rest is masked until decode writes it), as the reference's
+        does."""
+        self._splice_rows(slot, req_cache, span=span)
+
+    def _splice_rows(self, slot: int, req_cache, skip=(),
+                     span: Optional[int] = None) -> None:
+        """Copy ``req_cache``'s leaves (batch 1) into row ``slot`` of every
+        entry not in ``skip``, in place.  The slot axis is the leaf's known
+        one — 1 under the ``unit`` stack, 0 in the ``tail`` — not guessed
+        from the shape (the reference takes axis 1 whenever ``shape[1] ==
+        max_slots``, which misplaces a tail leaf whose time axis equals
+        ``max_slots``).  With ``span``, K/V leaves whose time axis is
+        ``t_max`` copy their first ``span`` timesteps only."""
         for kind in ("unit", "tail"):
             axis = 1 if kind == "unit" else 0
             for i, entry in enumerate(self.caches[kind]):
-                if (kind, i) in paged:
+                if (kind, i) in skip:
                     continue
                 for name, leaf in entry.items():
-                    leaf.narrow(axis, slot, 1).copy_(req_cache[kind][i][name])
+                    dst = leaf.narrow(axis, slot, 1)
+                    src = req_cache[kind][i][name]
+                    if (span is not None and name in ("k", "v")
+                            and leaf.shape[axis + 1] == self.t_max):
+                        dst = dst.narrow(axis + 1, 0, span)
+                        src = src.narrow(axis + 1, 0, span)
+                    dst.copy_(src)
 
     def _req_frames(self, req_cache, kind: str, i: int, name: str,
                     span: int) -> torch.Tensor:
@@ -330,41 +365,56 @@ class PagedKVCache:
             if stats is not None:
                 stats.prefill_bursts += 1
 
-    def _pool_install(self, plans, stats=None) -> None:
+    def _pool_install(self, plans, stats=None, burst=None) -> None:
         """Install a wave into the shared pool: the fused contract's sparse
-        write (:meth:`_pool_install_fused`), or every slot's extents through
-        one dense write-network flush, copied into the mapped pages."""
-        if self.fused_gather and self._fused_eligible():
+        write (:meth:`_pool_install_fused`), or the burst-eligible slots'
+        extents through one dense write-network flush, copied into the
+        mapped pages, and the other slots' frames spliced per leaf (the
+        same bytes, without the network)."""
+        if self.fused_gather and burst is not False and self._fused_eligible():
             self._pool_install_fused(plans, stats=stats)
             return
-        if not all(span == 0 or self._burst_eligible(rc, span)
-                   for _, rc, span in plans):
-            raise NotImplementedError(_SPLICE_TODO)
-        n = self.fabric.n_ports
+        # burst=False forces the splice; True/None burst wherever the slot's
+        # extents fit the network geometry
+        use_burst = {slot: burst is not False
+                     and self._burst_eligible(rc, span)
+                     for slot, rc, span in plans}
         staged = []
-        sched = BurstScheduler(self.fabric, stats=stats)
+        sched = None
         for slot, req_cache, span in plans:
-            if span == 0:
+            if not use_burst[slot] or span == 0:
                 continue
+            if sched is None:
+                sched = BurstScheduler(self.fabric, stats=stats)
+            n = self.fabric.n_ports
             for kind, i in self.paged_entries:
                 for name in ("k", "v"):
                     frames = self._req_frames(req_cache, kind, i, name, span)
                     lines = frames.reshape(-1, n, frames.shape[-1])
                     tag = f"prefill/{slot}/{kind}{i}/{name}"
                     sched.enqueue_write(tag, _lines_to_banked(lines, n))
-                    staged.append((slot, kind, i, name, tag, frames.shape,
-                                   span))
-        if not staged:
-            return
-        out = sched.flush()
-        self.prefill_bursts += 1
-        if stats is not None:
-            stats.prefill_bursts += 1
-        for slot, kind, i, name, tag, shape, span in staged:
-            _install_pool_leaf(self.caches[kind][i][name],
-                               out[tag].reshape(shape),
-                               self.pool.table[slot], span,
-                               self.table.page_size)
+                    staged.append((tag, frames.shape))
+        moved = {}
+        if sched is not None:
+            out = sched.flush()
+            moved = {tag: out[tag].reshape(shape) for tag, shape in staged}
+            self.prefill_bursts += 1
+            if stats is not None:
+                stats.prefill_bursts += 1
+        for slot, req_cache, span in plans:
+            if span == 0:
+                continue
+            if not use_burst[slot]:
+                self.prefill_splices += 1
+            for kind, i in self.paged_entries:
+                for name in ("k", "v"):
+                    tag = f"prefill/{slot}/{kind}{i}/{name}"
+                    frames = (moved[tag] if tag in moved else
+                              self._req_frames(req_cache, kind, i, name,
+                                               span))
+                    _install_pool_leaf(self.caches[kind][i][name], frames,
+                                       self.pool.table[slot], span,
+                                       self.table.page_size)
 
 
 def _lines_to_banked(lines: torch.Tensor, n: int) -> torch.Tensor:

@@ -9,8 +9,9 @@ consumer its slice back at :meth:`BurstScheduler.commit`.
 * **Packing** (``pack="packed"``): a stream of ``k*N`` lines of ``W``
   words is the same traffic as ``N`` lines of ``k*W`` words, so streams of
   one dtype concatenate along the word axis into one ``[N, N, W_total]``
-  burst.  The reference's pad-to-widest layout (``pack="pad"``) is ported
-  in a later slice and raises here.
+  burst.  ``pack="pad"`` keeps the reference's pad-to-widest layout:
+  streams concatenate along the line axis after zero-padding narrower
+  words to the widest (``words_padded`` counts the fill).
 * **Machine-word folding** (``word_fold``): adjacent narrow words fold into
   one wider machine word before the network runs (bf16 pairs ride 32-bit
   lanes).  The policy mirrors the reference's default exactly: there is no
@@ -18,7 +19,8 @@ consumer its slice back at :meth:`BurstScheduler.commit`.
   which is off), so a bf16 frame folds 2-wide, never 4-wide, and
   ``words_folded`` and the kernels' word width match the reference's.
   Words are viewed as signed integers of the same width; the bits are
-  what matter.
+  what matter.  The pad layout folds its padded word axis, and at a fold
+  of 1 keeps the payload dtype, as the reference's does.
 * **Sparse-extent streams**: ``enqueue_read(..., gather=idx)`` banks only
   the frames ``idx`` names (sentinels read zero frames);
   ``enqueue_write(..., scatter=idx, into=pool)`` lands frames at their
@@ -40,10 +42,6 @@ import torch
 from repro_torch.configs.base import PortSpec
 from repro_torch.fabric.fabric import Fabric, _put_drop, _take_fill
 
-_PAD_TODO = ("the pad-to-widest burst layout (pack='pad') is ported in a "
-             "later slice (ROADMAP §1 item 2); use pack='packed'")
-
-
 @dataclasses.dataclass
 class SchedulerStats:
     """Traffic accounting for a :class:`BurstScheduler` (the reference's
@@ -54,10 +52,11 @@ class SchedulerStats:
     launch), ``words_moved``/``words_folded`` word-axis elements carried
     and folded into wider machine words, ``kernel_bursts`` bursts that
     lowered through a fused kernel, ``words_live``/``gather_fused_bursts``
-    the sparse-extent traffic, and ``prefill_bursts`` admission waves
-    installed through one write burst.  The remaining counters belong to
-    paths ported in later slices (pad layout, sharded pool, preemption,
-    admission control, MoE) and stay zero here."""
+    the sparse-extent traffic, ``prefill_bursts`` admission waves
+    installed through one write burst, and ``words_padded`` the zero fill
+    of the ``pack="pad"`` layout.  The remaining counters belong to paths
+    ported in later slices (sharded pool, preemption, admission control,
+    MoE) and stay zero here."""
     streams_served: int = 0
     flushes: int = 0
     network_calls: int = 0
@@ -112,9 +111,7 @@ class BurstScheduler:
                  word_fold=None, stats: Optional[SchedulerStats] = None):
         self.fabric = fabric
         self.pack = pack or fabric.config.pack
-        if self.pack == "pad":
-            raise NotImplementedError(_PAD_TODO)
-        if self.pack != "packed":
+        if self.pack not in ("packed", "pad"):
             raise ValueError(f"unknown burst packing {self.pack!r}")
         self.word_fold = (fabric.config.word_fold if word_fold is None
                           else word_fold)
@@ -265,7 +262,8 @@ class BurstScheduler:
                 self.stats.gather_fused_bursts += 1
                 streams = [self._materialize_gather(q) for q in streams]
             self.stats.network_calls += 1
-            res = self._run_packed(streams, read)
+            res = (self._run_packed(streams, read) if self.pack == "packed"
+                   else self._run_padded(streams, read))
             for q in streams:
                 if q.scatter is not None:
                     _put_drop(q.into, q.scatter, res[q.spec.name])
@@ -365,6 +363,79 @@ class BurstScheduler:
             off += q.spec.words
             out[q.spec.name] = _unpack_tile(piece, q, n, read, fold)
         return out
+
+
+    def _padded_fold(self, streams: List[_Queued], w_max: int) -> int:
+        """Fold factor for one pad-layout dtype group: every stream is
+        padded to ``w_max`` words, so the factor has to divide ``w_max``."""
+        return self._fold_factor(streams[0].payload.dtype,
+                                 lambda f: w_max % f == 0)
+
+    def _run_padded(self, streams: List[_Queued],
+                    read: bool) -> Dict[str, torch.Tensor]:
+        """Pad-to-widest layout (``pack="pad"``): each stream's words are
+        zero-padded to the widest stream's and the streams concatenate
+        along the line axis, so the network moves the padding the packed
+        layout avoids.  Under ``word_fold`` the padded word axis folds into
+        wider machine words first; at a fold of 1 the payload keeps its
+        dtype.  The counters are the reference's (``kernel_bursts`` is not
+        counted: the reference runs its unrolled network here)."""
+        n = self.fabric.n_ports
+        out: Dict[str, torch.Tensor] = {}
+        w_max = max(q.width for q in streams)
+        fold = self._padded_fold(streams, w_max)
+        dt = streams[0].payload.dtype
+        flat = []
+        for q in streams:
+            lead = tuple(q.payload.shape[:2 if read else 3])
+            x = q.payload.reshape(lead + (q.width,))
+            lines = q.payload.shape[0] * (1 if read else n)
+            self.stats.words_moved += lines * n * q.width
+            self.stats.words_padded += lines * n * (w_max - q.width)
+            if q.width < w_max:
+                x = torch.nn.functional.pad(x, (0, w_max - q.width))
+            if fold > 1:
+                elems = lines * n * w_max          # lane view incl. padding
+                self.stats.words_folded += elems - elems // fold
+                x = _word_view(x.contiguous(), dt, fold)
+            flat.append(x)
+        burst = flat[0] if len(flat) == 1 else torch.cat(flat, dim=0)
+        moved = self._padded_network(burst, read)
+        # split back: stream i covers groups [off, off + L_i/N) (read) or
+        # lines [off, off + G_i*N) (write)
+        off = 0
+        for q in streams:
+            count = (q.payload.shape[0] // n if read
+                     else q.payload.shape[0] * n)
+            piece = moved[off:off + count]
+            off += count
+            if fold > 1:
+                piece = _unword_view(piece.contiguous(), dt)
+            piece = piece[..., :q.width]
+            out[q.spec.name] = piece.reshape(tuple(piece.shape[:-1])
+                                             + q.rest_shape)
+        return out
+
+    def _padded_network(self, burst: torch.Tensor,
+                        read: bool) -> torch.Tensor:
+        """The pad layout's network call: lines ``[G*N, N, w]`` → banked
+        ``[G, N, N, w]`` (read), or back (write).  On the kernelized fabric
+        the line groups fold into the word axis, as the packed layout's
+        do, and the padded burst is one ``[N, N, G*w]`` tile through the
+        dense burst kernel; otherwise the fabric's network runs on the
+        line stream, as the reference's does."""
+        n = self.fabric.n_ports
+        if not self.fabric.burst_kernelized_for(burst.dtype):
+            return (self.fabric.read(burst) if read
+                    else self.fabric.write(burst))
+        g = burst.shape[0] // n if read else burst.shape[0]
+        w = burst.shape[-1]
+        tile = burst.reshape(g, n, n, w).permute(1, 2, 0, 3).reshape(
+            n, n, g * w)
+        moved = (self.fabric.read_burst(tile) if read
+                 else self.fabric.write_burst(tile))
+        banked = moved.reshape(n, n, g, w).permute(2, 0, 1, 3)
+        return banked if read else banked.reshape(g * n, n, w)
 
 
 # Sparse-extent sentinel: any index >= the backing stream's line count reads

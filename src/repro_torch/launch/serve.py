@@ -5,18 +5,24 @@ Runs on the CUDA device (``--device cpu`` runs the plain kernel versions
 on the CPU) with random weights drawn from ``--seed`` and synthetic
 prompts.  ``--fabric-impl`` picks the KV fabric (``medusa``, the default;
 the ``crossbar`` baseline, which routes every movement through an index
-tensor and launches no Medusa kernel; or the ``oracle`` permute) in either
-mode.  Two modes, as the reference's:
+tensor and launches no Medusa kernel; the ``oracle`` permute; or
+``fused``, which attends over the line-major cache and banks no KV) in
+either mode.  Two modes, as the reference's:
 
 * one-shot (default): ``api.greedy_generate`` over the batch through the
   per-layer decode path, which reads every layer's K/V through the fabric's
   layout engine (one transpose kernel launch per K/V leaf per layer);
-* ``--engine``: the paged continuous-batching
+* ``--engine``: the continuous-batching
   :class:`repro_torch.serving.ServingEngine`, whose decode step is
   burst-scheduled — with the fused gather (default) each K/V pool leaf is
   one gather kernel launch and one scatter kernel launch per step;
   ``--no-fused-gather`` banks the whole pool through the dense burst
-  kernel instead.
+  kernel instead.  ``--no-paged-pool`` keeps the dense per-slot KV
+  reservation, ``--pack`` picks the burst layout, ``--word-fold`` the
+  machine-word folding cap, and ``--serve-fsdp`` streams the weights
+  through the step's read burst.  A fabric that cannot bank the KV leaves
+  (``fused``, or an explicit geometry off one port per KV head) decodes
+  through the per-layer paged path.
 
 Prints throughput, the fabric census (engine) and the kernel launch counts.
 """
@@ -27,7 +33,6 @@ import argparse
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -40,7 +45,7 @@ from repro_torch.serving import Request, ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--arch", default="gemma3-12b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config of the architecture")
     ap.add_argument("--device", default=None,
@@ -58,21 +63,33 @@ def main(argv=None):
                     default=None,
                     choices=["medusa", "crossbar", "oracle", "fused"],
                     help="the KV fabric's network (default: the config's, "
-                         "medusa); 'fused' is not ported yet")
+                         "medusa)")
     ap.add_argument("--page-size", type=int, default=0,
                     help="KV page size in timesteps (0 = fabric default)")
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="physical pages in the shared pool (0 = "
                          "max_slots * pages_per_slot)")
+    ap.add_argument("--paged-pool", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="back the engine's full-attention KV with one "
+                         "shared physical page pool (default on); "
+                         "--no-paged-pool keeps the dense per-slot "
+                         "reservation")
     ap.add_argument("--fused-gather", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="fuse the pool's logical->physical gather into the "
                          "bursts (default on); --no-fused-gather banks the "
                          "whole pool and gathers after the burst")
+    ap.add_argument("--pack", default=None, choices=["packed", "pad"],
+                    help="burst layout of the scheduled decode step "
+                         "(default: the config's, packed)")
+    ap.add_argument("--word-fold", default=None,
+                    choices=["auto", "1", "2", "4"],
+                    help="machine-word lane folding cap of the bursts")
+    ap.add_argument("--serve-fsdp", action="store_true",
+                    help="stream the weights through the decode step's "
+                         "read burst (weight_stream ports)")
     args = ap.parse_args(argv)
-    if args.kv_layout == "fused":
-        ap.error("--fabric-impl fused is not ported yet (ROADMAP §1 item "
-                 "2); choose medusa, crossbar or oracle")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # float32 products in full precision, as the reference
@@ -86,10 +103,21 @@ def main(argv=None):
             cfg = dataclasses.replace(
                 cfg, fabric=dataclasses.replace(cfg.fabric,
                                                 impl=args.kv_layout))
+    fab_over = {}
     if args.page_size:
-        cfg = dataclasses.replace(
-            cfg, fabric=dataclasses.replace(cfg.resolved_fabric,
-                                            page_size=args.page_size))
+        fab_over["page_size"] = args.page_size
+    if args.pack:
+        fab_over["pack"] = args.pack
+    if args.word_fold:
+        fab_over["word_fold"] = ("auto" if args.word_fold == "auto"
+                                 else int(args.word_fold))
+    if args.paged_pool is not None:
+        fab_over["paged_pool"] = args.paged_pool
+    if fab_over:
+        cfg = dataclasses.replace(cfg, fabric=dataclasses.replace(
+            cfg.resolved_fabric, **fab_over))
+    if args.serve_fsdp:
+        cfg = dataclasses.replace(cfg, serve_fsdp=True)
     fab = cfg.resolved_fabric
     data = SyntheticLM(cfg, batch=args.batch, seq=args.prompt_len,
                        seed=args.seed)
@@ -135,21 +163,30 @@ def main(argv=None):
           f"{eng.step_count} engine steps; admission moved "
           f"{kv.tokens_moved} of {kv.tokens_moved_dense} dense-splice "
           f"timesteps")
-    print(f"page pool: {pool.n_pages} physical pages x {pool.page_size} "
-          f"timesteps; {pool.pages_allocated} allocated, "
-          f"{pool.pages_reclaimed} reclaimed, {pool.pages_in_use} in use at "
-          f"exit; {kv.prefill_bursts} prefill write bursts")
+    if pool is None:
+        print(f"dense per-slot KV: {args.batch} slots x {eng.t_alloc} "
+              f"timesteps; {kv.prefill_splices} prefill splices")
+    else:
+        print(f"page pool: {pool.n_pages} physical pages x "
+              f"{pool.page_size} timesteps; {pool.pages_allocated} "
+              f"allocated, {pool.pages_reclaimed} reclaimed, "
+              f"{pool.pages_in_use} in use at exit; {kv.prefill_bursts} "
+              f"prefill write bursts, {kv.prefill_splices} prefill splices")
     print(f"fabric over the run: {fs.network_calls} network calls for "
           f"{fs.streams_served} streams over {fs.flushes} bursts "
-          f"({fs.words_moved} words moved, {fs.words_folded} folded into "
-          f"machine words, {fs.kernel_bursts} fused-kernel bursts, "
-          f"{fs.prefill_bursts} prefill bursts)")
+          f"({fs.words_moved} words moved, {fs.words_padded} padded, "
+          f"{fs.words_folded} folded into machine words, "
+          f"{fs.kernel_bursts} fused-kernel bursts, {fs.prefill_bursts} "
+          f"prefill bursts)")
     if fs.gather_fused_bursts:
         print(f"fused gather: {fs.words_live} live-frame words through "
               f"{fs.gather_fused_bursts} sparse-extent bursts")
+    elif not eng.fabric.banks_kv:
+        print("fused gather: off — the fabric banks no KV; the step decodes "
+              "through the per-layer path")
     else:
-        print("fused gather: off — gather-after-burst banks the whole pool "
-              "each step")
+        print("fused gather: off — the step banks the whole pool (gathering "
+              "after the burst) or the dense per-slot caches")
     print(f"kernel launches: {mt.launch_counts()}")
     print("sample:", reqs[0].generated[:16])
 

@@ -1,8 +1,9 @@
 """Shared model components (port of the parts of ``repro.models.common``
 the dense decoder runs): norms, RoPE, attention for prefill, for the
-per-layer cached decode (through the fabric's KV layout engine) and for
-port-major decode, the KV banking relabels, the page-pool plan helpers,
-the MLP, embeddings and logits.
+per-layer cached decode (through the fabric's KV layout engine, or
+line-major on the ``fused`` fabric) and for port-major decode, the KV
+banking relabels, the page-pool plan helpers, the MLP, embeddings and
+logits.
 
 The numerics follow the reference op for op, so the two packages compare
 within float32 rounding: layer norm in float32 with eps 1e-5, RoPE
@@ -224,14 +225,35 @@ def _kv_port_major(c: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def cached_attention(q, ck, cv, pos, kv_pos, valid, window, cfg):
-    """Decode attention over a line-major cache: re-bank K and V to
-    port-major head streams through the model's fabric (one layout-engine
-    launch per leaf on the medusa fabric), then attend.  The reference's
-    ``fused`` fabric contracts the line-major cache directly; it comes with
-    that fabric (``Fabric`` refuses it today)."""
+    """Decode attention over a line-major cache, by the model's fabric:
+    ``medusa``/``crossbar``/``oracle`` re-bank K and V to port-major head
+    streams first (one layout-engine launch per leaf on the medusa
+    fabric); ``fused`` contracts the line-major cache directly
+    (:func:`_decode_attention_linemajor`, no banked copy).  All fabrics are
+    value-identical."""
+    if _model_fabric(cfg).impl == "fused":
+        return _decode_attention_linemajor(q, ck, cv, pos, kv_pos, valid,
+                                           window)
     return _decode_attention(q, _kv_port_major(ck, cfg),
                              _kv_port_major(cv, cfg), pos, kv_pos, valid,
                              window)
+
+
+def _decode_attention_linemajor(q, k, v, pos, kv_pos, valid, window):
+    """Decode attention of the ``fused`` fabric: ``q [B,1,H,D]`` against
+    the line-major ``k/v [B,T,Hkv,D]``.  The cache-side dots run in the
+    cache dtype; only the score tensor is upcast for the softmax."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, d) * (d ** -0.5)
+    s = torch.einsum("bqhgd,bthd->bhgqt", qg.to(k.dtype), k).float()
+    s = torch.where(_expand_mask(_window_mask(valid, pos, kv_pos, window)),
+                    s, torch.tensor(-1e30, dtype=torch.float32,
+                                    device=s.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqt,bthd->bqhgd", p.to(v.dtype), v)
+    return out.reshape(b, sq, h, d)
 
 
 # ----------------------------------------------------------------------------
@@ -362,6 +384,16 @@ def _expand_mask(mask: torch.Tensor) -> torch.Tensor:
     return mask[:, None, None, None, :]
 
 
+def _window_mask(valid, pos, kv_pos, window):
+    """The decode mask: ``valid`` and, for a windowed layer, keys within
+    ``window`` positions of ``pos`` (scalar or ``[B]``)."""
+    if not window:
+        return valid
+    dist = (pos - kv_pos if pos.ndim == 0
+            else pos[:, None] - kv_pos[None, :])
+    return valid & (dist < window)
+
+
 def _decode_attention(q, k_pm, v_pm, pos, kv_pos, valid, window):
     """Single-step decode attention over a port-major cache: ``q
     [B,1,H,D]``, ``k_pm/v_pm [B,Hkv,T,D]``.  The cache-side dots run in the
@@ -371,13 +403,9 @@ def _decode_attention(q, k_pm, v_pm, pos, kv_pos, valid, window):
     g = h // hkv
     qg = q.reshape(b, sq, hkv, g, d) * (d ** -0.5)
     s = torch.einsum("bqhgd,bhkd->bhgqk", qg.to(k_pm.dtype), k_pm).float()
-    mask = valid
-    if window:
-        dist = (pos - kv_pos if pos.ndim == 0
-                else pos[:, None] - kv_pos[None, :])
-        mask = mask & (dist < window)
-    s = torch.where(_expand_mask(mask), s,
-                    torch.tensor(-1e30, dtype=torch.float32, device=s.device))
+    s = torch.where(_expand_mask(_window_mask(valid, pos, kv_pos, window)),
+                    s, torch.tensor(-1e30, dtype=torch.float32,
+                                    device=s.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bqhgd", p.to(v_pm.dtype), v_pm)
     return out.reshape(b, sq, h, d)

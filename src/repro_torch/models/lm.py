@@ -1,6 +1,8 @@
 """Decoder-only LM (port of ``repro.models.lm`` for full-attention ``A``
 and sliding-window ``L`` blocks): parameters, caches, prefill, the
-per-layer decode step and the burst-scheduled decode step.
+per-layer decode step (over dense caches or, gathered, over the page pool)
+and the burst-scheduled decode step (with ``serve_fsdp`` weight
+streaming).
 
 Parameters are an :class:`LM` module: one :class:`Block` per layer
 (``LM.unit[i][r]`` is pattern position ``i`` of repetition ``r``, the
@@ -20,6 +22,7 @@ reference returns new arrays); the returned tree holds the same leaves.
 from __future__ import annotations
 
 import math
+import types
 
 import numpy as np
 import torch
@@ -46,10 +49,10 @@ def _check_supported(cfg: ModelConfig) -> None:
             or cfg.n_patches or cfg.encoder_layers \
             or any(t not in ("A", "L") for t in cfg.layer_types()):
         raise NotImplementedError(_OTHER_FAMILIES)
-    if cfg.spec_heads or cfg.serve_fsdp:
+    if cfg.spec_heads:
         raise NotImplementedError(
-            "draft heads and serve_fsdp weight streaming are ported in a "
-            "later slice (ROADMAP §1 item 2)")
+            "the draft heads come with speculative decode, in a later slice "
+            "(ROADMAP §1 item 4)")
 
 
 # ----------------------------------------------------------------------------
@@ -343,39 +346,41 @@ def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
     new token's K/V into its line-major (or ring) cache and reads the cache
     through the fabric's KV layout engine — on the medusa fabric one
     layout-engine kernel launch per K/V leaf per layer (ring layers at
-    per-row positions attend line-major instead).
+    per-row positions, and every layer on the ``fused`` fabric, attend
+    line-major instead).
 
     With a ``BurstScheduler`` every full-attention leaf's port-major
     conversion is one shared read burst at the top of the step; attention
     runs (and writes the new token's K/V) in port-major space; one write
     burst restores line-major caches at the bottom; ring layers keep their
-    own caches.  With ``page_table`` the leaves are shared page pools; with
-    ``live_plan`` (the operands of :func:`repro_torch.models.common.
-    page_live_plan`, as tensors) the pool gather is fused into the bursts
-    (sparse-extent streams — the ``live`` form), otherwise the burst banks
-    the whole pool and the gather runs after it (the ``phys`` form).  On
-    the fused form the write burst scatters into the pool leaves in place,
-    so the returned caches share storage with ``caches``."""
+    own caches.  Under ``cfg.serve_fsdp`` the weights ride the same read
+    burst and the step computes with what comes back.  With ``page_table``
+    the leaves are shared page pools; with ``live_plan`` (the operands of
+    :func:`repro_torch.models.common.page_live_plan`, as tensors) the pool
+    gather is fused into the bursts (sparse-extent streams — the ``live``
+    form), otherwise the burst banks the whole pool and the gather runs
+    after it (the ``phys`` form).  On the fused form the write burst
+    scatters into the pool leaves in place, so the returned caches share
+    storage with ``caches``.
+
+    A fabric off the port-per-KV-head geometry, or the ``fused`` fabric,
+    cannot bank the leaves (:func:`_burst_plan` gives None): the step then
+    takes the per-layer path, through the page pool with
+    :func:`_decode_step_paged_fallback` when there is a ``page_table``."""
     host = _check_positions(pos, caches, cfg, page_table, t_depth)
     pos = torch.as_tensor(host, dtype=torch.int32, device=token.device)
     positions = pos[None] if pos.ndim == 0 else pos[:, None]
-    if sched is None:
-        if page_table is not None:
-            raise NotImplementedError(
-                "the per-layer paged decode (_decode_step_paged_fallback) is "
-                "ported in a later slice (ROADMAP §1 item 2); pass a "
-                "BurstScheduler")
-        return _decode_step_layers(params, token, caches, pos, positions, cfg)
     phys = (None if page_table is None
             else cm.page_gather_indices(page_table, page_size, t_depth))
-    plan = _burst_plan(cfg, caches)
-    if plan is None:
-        raise NotImplementedError(
-            "off-geometry fabrics decode through the per-layer paged "
-            "fallback, ported in a later slice (ROADMAP §1 item 2)")
-    live = live_plan if phys is not None else None
-    return _decode_step_scheduled(params, token, caches, pos, positions, cfg,
-                                  sched, plan, phys=phys, live=live)
+    plan = _burst_plan(cfg, caches) if sched is not None else None
+    if plan is not None:
+        live = live_plan if phys is not None else None
+        return _decode_step_scheduled(params, token, caches, pos, positions,
+                                      cfg, sched, plan, phys=phys, live=live)
+    if phys is not None:
+        return _decode_step_paged_fallback(params, token, caches, pos,
+                                           positions, cfg, phys)
+    return _decode_step_layers(params, token, caches, pos, positions, cfg)
 
 
 def _decode_step_layers(params: LM, token, caches, pos, positions,
@@ -389,9 +394,35 @@ def _decode_step_layers(params: LM, token, caches, pos, positions,
     return cm.logits_apply(params.embed, x, cfg), caches
 
 
+def _decode_step_paged_fallback(params: LM, token, caches, pos, positions,
+                                cfg: ModelConfig, phys):
+    """The per-layer paged decode (no scheduler, an off-geometry fabric, or
+    the ``fused`` fabric): gather each pool leaf into its dense line-major
+    view ``[lead..., B, T, Hkv, D]`` through ``phys``, run the per-layer
+    path on those views, and scatter the updated frames back into the pool
+    leaves in place.  Ring leaves are the caller's and update in place."""
+    entries = paged_entries(cfg)
+    dense = {"unit": list(caches["unit"]), "tail": list(caches["tail"])}
+    for kind, i in entries:
+        dense[kind][i] = {}
+        for name, pool in caches[kind][i].items():
+            flat = _flat_frames(pool)
+            dense[kind][i][name] = cm.gather_pool_frames(flat, phys,
+                                                         flat.ndim - 3)
+    logits, _ = _decode_step_layers(params, token, dense, pos, positions,
+                                    cfg)
+    for kind, i in entries:
+        for name, pool in caches[kind][i].items():
+            cm.scatter_pool_frames(_flat_frames(pool), dense[kind][i][name],
+                                   phys, pool.ndim - 4)
+    return logits, caches
+
+
 def _burst_plan(cfg: ModelConfig, caches):
     """The cache entries the scheduled step routes through the shared
-    burst, or None when the fabric is off the port-per-KV-head geometry."""
+    burst, or None when the fabric is off the port-per-KV-head geometry or
+    is ``fused`` (which never banks: its consumers contract the line-major
+    cache, so banking would make the very copies it elides)."""
     fab = cfg.resolved_fabric
     n = fab.n_ports
     if fab.impl == "fused":
@@ -427,7 +458,10 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
         return cm.pool_rep_indices(live_idx, math.prod(flat.shape[:-3]),
                                    flat.shape[-3])
 
-    # -- burst 1: KV banking -------------------------------------------------
+    # -- burst 1: weight stream + KV banking ----------------------------------
+    streamed = (_enqueue_weight_stream(sched, params,
+                                       cfg.resolved_fabric.n_ports)
+                if cfg.serve_fsdp else None)
     for kind, i in plan:
         for leaf_name in ("k", "v"):
             leaf = caches[kind][i][leaf_name]
@@ -442,6 +476,8 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
                                cm.kv_leaf_to_lines(leaf))
     sched.issue()
     moved = sched.commit()
+    if streamed is not None:
+        params = _rebuild_weight_stream(params, moved, streamed)
 
     pm = {"unit": [None] * len(caches["unit"]),
           "tail": [None] * len(caches["tail"])}
@@ -527,6 +563,74 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
 
     x = cm.apply_norm(x, params.final_norm, cfg.norm)
     return cm.logits_apply(params.embed, x, cfg), new_caches
+
+
+# The block's parameter groups in the reference tree's sorted key order.
+_PARTS = ("attn", "ffn", "norm1", "norm2")
+
+
+def _weight_slots(params):
+    """The reference's parameter leaves in its ``tree_flatten`` order (dict
+    keys sorted: ``embed``, ``final_norm``, ``tail``, ``unit``; lists in
+    order), each as its ``(dict, name)`` slots in ``params`` (an
+    :class:`LM`, or the step's copy of one): one slot per repetition for a
+    ``unit`` leaf, which the reference stacks into one leaf, else one."""
+    for group in ("embed", "final_norm"):
+        pdict = getattr(params, group)
+        for name in sorted(pdict.keys()):
+            yield [(pdict, name)]
+    for block in params.tail:
+        for part in _PARTS:
+            pdict = getattr(block, part)
+            for name in sorted(pdict.keys()):
+                yield [(pdict, name)]
+    for blocks in params.unit:
+        for part in _PARTS:
+            for name in sorted(getattr(blocks[0], part).keys()):
+                yield [(getattr(b, part), name) for b in blocks]
+
+
+def _enqueue_weight_stream(sched, params: LM, n: int):
+    """``serve_fsdp`` weight streaming: queue every weight leaf whose size
+    divides N² as a single-group line stream ``[N, N, size/N²]`` in the
+    step's read burst, named ``weight_stream/<j>`` for the leaf's index
+    ``j`` in the reference's tree order — the same groups of bytes the
+    reference streams (a ``unit`` leaf's repetitions are stacked into one
+    stream each step).  Other leaves stay resident.  Returns the streamed
+    ``j``."""
+    streamed = []
+    for j, slots in enumerate(_weight_slots(params)):
+        tensors = [pdict[name] for pdict, name in slots]
+        size = sum(t.numel() for t in tensors)
+        if size and size % (n * n) == 0:
+            leaf = tensors[0] if len(tensors) == 1 else torch.stack(tensors)
+            sched.enqueue_read(f"weight_stream/{j}", leaf.reshape(n, n, -1))
+            streamed.append(j)
+    return streamed
+
+
+def _rebuild_weight_stream(params: LM, moved, streamed):
+    """The decode step's weights after the stream: each streamed leaf is
+    its port's bank read back (``banked[0]`` transposed, an exact round
+    trip) and replaces the resident tensors, a stacked leaf split back
+    into its repetitions; the rest stay resident.  Returns a copy of
+    ``params``' structure that the decode path reads as an :class:`LM`."""
+    def copy(block):
+        return types.SimpleNamespace(**{part: dict(getattr(block, part))
+                                        for part in _PARTS})
+    out = types.SimpleNamespace(
+        embed=dict(params.embed), final_norm=dict(params.final_norm),
+        unit=[[copy(b) for b in blocks] for blocks in params.unit],
+        tail=[copy(b) for b in params.tail])
+    slots = list(_weight_slots(out))
+    for j in streamed:
+        pdict, name = slots[j][0]
+        banked = moved[f"weight_stream/{j}"]             # [1, N, N, W]
+        leaf = banked[0].transpose(0, 1).reshape(
+            (len(slots[j]),) + tuple(pdict[name].shape))
+        for (pdict, name), rep in zip(slots[j], leaf):
+            pdict[name] = rep
+    return out
 
 
 def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig, t_max: int,

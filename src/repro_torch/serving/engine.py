@@ -1,15 +1,22 @@
-"""Slot-based continuous-batching serving engine on the paged KV pool
-(port of ``repro.serving.engine``).
+"""Slot-based continuous-batching serving engine (port of
+``repro.serving.engine``).
 
 A fixed decode batch of ``max_slots`` sequences advances one token per
 step; finished sequences retire and their slots refill from the queue.
-Every full-attention KV leaf lives in one shared physical page pool
-(:class:`repro_torch.fabric.PagedKVCache`): pages are allocated at
-admission and decode growth and reclaimed at retirement.  Admission
-prefills each request and installs the wave through one write burst.  Each
-decode step runs through a :class:`repro_torch.fabric.BurstScheduler`: one
-read burst banks the KV port-major, attention runs in port-major space,
-one write burst restores line-major.  A sliding-window layer (gemma3's
+By default every full-attention KV leaf lives in one shared physical page
+pool (:class:`repro_torch.fabric.PagedKVCache`): pages are allocated at
+admission and decode growth and reclaimed at retirement;
+``paged_pool=False`` keeps the dense per-slot reservation instead.
+Admission prefills each request and installs the wave through one write
+burst (``prefill_burst=False``, a fabric that does not bank, or extents off
+the write network's geometry splice per leaf instead).  Each decode step
+runs through a :class:`repro_torch.fabric.BurstScheduler`: one read burst
+banks the KV port-major (and, under ``serve_fsdp``, streams the weights),
+attention runs in port-major space, one write burst restores line-major.
+A fabric that cannot bank the leaves — the ``fused`` fabric, or one off
+the port-per-KV-head geometry — decodes through the per-layer paged path
+instead (:func:`repro_torch.models.lm._decode_step_paged_fallback`).
+A sliding-window layer (gemma3's
 ``L``) keeps a per-slot ring of its last ``W`` positions on the device
 instead: admission copies the request's ring into its slot's row, the step
 writes and attends it line-major at each slot's own position, and a
@@ -24,10 +31,9 @@ kernel and gathers after it.
 
 The step runs eagerly, so ``fabric_stats`` counts every executed step (the
 reference accumulates its counters once per traced jit bucket instead).
-Preemption, swap, aging, load shedding, speculative decode, fault
-injection, the per-leaf splice admission (``prefill_burst=False``), the
-dense per-slot layout and the sharded pool are ported in later slices;
-asking for them raises ``NotImplementedError``.
+Preemption, swap, aging, load shedding, speculative decode and fault
+injection (ROADMAP §1 items 3-4) and the sharded pool (item 8) are ported
+in later slices; asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from repro_torch.models import api
 from repro_torch.models import common as cm
 from repro_torch.models import lm
 
-_LATER = "is ported in a later slice (ROADMAP §1 items 2-4)"
+_LATER = "is ported in a later slice (ROADMAP §1 item {})"
 
 
 @dataclasses.dataclass(eq=False)           # identity equality: the prompt
@@ -72,18 +78,15 @@ class ServingEngine:
         if cfg.family == "audio":
             raise ValueError("engine covers decoder-only families")
         fab_cfg = cfg.resolved_fabric
-        if (paged_pool is False or not fab_cfg.paged_pool):
-            raise NotImplementedError(f"the dense per-slot KV layout {_LATER}")
-        for what, asked in (("the sharded pool", (pool_shards or
-                                                  fab_cfg.pool_shards) > 1),
-                            ("the per-leaf splice admission",
-                             prefill_burst is False),
-                            ("fault injection", fault_injector is not None),
-                            ("speculative decode", spec_decode_k > 0),
-                            ("anti-starvation aging", aging > 0),
-                            ("the bounded submit queue", max_queue > 0)):
+        for what, asked, item in (
+                ("the sharded pool",
+                 (pool_shards or fab_cfg.pool_shards) > 1, 8),
+                ("fault injection", fault_injector is not None, 4),
+                ("speculative decode", spec_decode_k > 0, 4),
+                ("anti-starvation aging", aging > 0, 4),
+                ("the bounded submit queue", max_queue > 0, 4)):
             if asked:
-                raise NotImplementedError(f"{what} {_LATER}")
+                raise NotImplementedError(f"{what} {_LATER.format(item)}")
         self.cfg = cfg
         self.params = params
         self.device = params.embed["table"].device
@@ -98,22 +101,33 @@ class ServingEngine:
         entries = lm.paged_entries(cfg)
         if not entries:
             raise NotImplementedError(
-                f"families without full-attention leaves {_LATER}")
-        pages_per_slot = -(-self.t_alloc // ps)
-        pool_pages = pool_pages or max_slots * pages_per_slot
-        # the pool rides the step's burst as one line stream: its frame
-        # count rounds up to a multiple of N
-        while (pool_pages * ps) % n:
-            pool_pages += 1
+                f"families without full-attention leaves "
+                f"{_LATER.format(7)}")
+        # shared physical page pool (the default) or the dense per-slot
+        # reservation
+        self.paged = (fab_cfg.paged_pool if paged_pool is None
+                      else paged_pool)
+        if self.paged:
+            pages_per_slot = -(-self.t_alloc // ps)
+            pool_pages = pool_pages or max_slots * pages_per_slot
+            # the pool rides the step's burst as one line stream: its frame
+            # count rounds up to a multiple of N
+            while (pool_pages * ps) % n:
+                pool_pages += 1
+        else:
+            pool_pages = 0
+        self.prefill_burst = prefill_burst
+        # the fused gather needs the pool and a fabric that banks KV
         self.fused = ((fab_cfg.fused_gather_on if fused_gather is None
-                       else fused_gather) and self.fabric.banks_kv)
+                       else fused_gather) and self.paged
+                      and self.fabric.banks_kv)
         self.live_bucket = n * ps
         self.kv = PagedKVCache(
             api.init_cache(cfg, max_slots, self.t_alloc,
                            pool_pages=pool_pages, page_size=ps,
                            device=self.device),
             max_slots, self.t_alloc, ps, pool_pages=pool_pages,
-            paged_entries=entries, fabric=self.fabric,
+            paged_entries=entries if self.paged else (), fabric=self.fabric,
             fused_gather=self.fused)
         self.pos = np.zeros((max_slots,), np.int32)      # next write position
         self.active: List[Optional[Request]] = [None] * max_slots
@@ -125,7 +139,7 @@ class ServingEngine:
         if pre not in ("swap", "recompute", "off"):
             raise ValueError(f"preempt must be 'swap', 'recompute' or "
                              f"'off', got {pre!r}")
-        self.preempt = pre
+        self.preempt = pre if self.paged else "off"
         self.check_pool = check_pool
         self._submit_seq = 0
         self._step_count = 0
@@ -144,14 +158,15 @@ class ServingEngine:
         raise (a prompt the cache cannot hold, or a reach larger than the
         whole pool)."""
         if req.deadline is not None:
-            raise NotImplementedError(f"SLO deadlines and shedding {_LATER}")
+            raise NotImplementedError(
+                f"SLO deadlines and shedding {_LATER.format(4)}")
         if len(req.prompt) + 1 > self.t_max:
             raise ValueError(
                 f"request {req.rid}: prompt of {len(req.prompt)} tokens "
                 f"cannot decode within t_max={self.t_max}")
         reach = min(len(req.prompt) + req.max_new_tokens, self.t_max)
         need = self.kv.table.pages_for(reach)
-        if need > self.kv.pool.n_pages:
+        if self.paged and need > self.kv.pool.n_pages:
             raise ValueError(
                 f"request {req.rid}: reach of {reach} tokens reserves "
                 f"{need} pages but the pool holds {self.kv.pool.n_pages}"
@@ -167,27 +182,33 @@ class ServingEngine:
 
     def _admit(self) -> None:
         """Fill slots from the queue in priority order: prefill each prompt,
-        then install the wave's KV through ONE write-burst flush.  Admission
-        gates on free pages (head-of-line within the priority order)."""
+        then install the wave's KV through ONE write-burst flush (or the
+        per-leaf splice).  Pool mode gates on free pages (head-of-line
+        within the priority order); dense mode on free slots."""
         wave: list = []
         protected: set = set()
         while self.queue:
             req = sorted(self.queue, key=self._rank)[0]
             free = [s for s in range(self.max_slots)
                     if self.active[s] is None]
-            # reserve the request's full reach so decode growth can never
-            # exhaust the pool mid-flight — admission is the only gate
-            reach = min(len(req.prompt) + req.max_new_tokens, self.t_max)
-            need = self.kv.table.pages_for(reach)
-            if not free or self._pool_headroom() < need:
-                if not self._make_room(req, need, protected):
-                    break        # wait for pages to be reclaimed
-            self._page_reserve[free[0]] = need
+            if self.paged:
+                # reserve the request's full reach so decode growth can
+                # never exhaust the pool mid-flight — admission is the only
+                # gate
+                reach = min(len(req.prompt) + req.max_new_tokens, self.t_max)
+                need = self.kv.table.pages_for(reach)
+                if not free or self._pool_headroom() < need:
+                    if not self._make_room(req, need, protected):
+                        break        # wait for pages to be reclaimed
+                self._page_reserve[free[0]] = need
+            elif not free:
+                break
             slot = free[0]
             protected.add(slot)
             self._install(req, slot, wave)
         if wave:
-            self.kv.admit_wave(wave, stats=self.fabric_stats)
+            self.kv.admit_wave(wave, stats=self.fabric_stats,
+                               burst=self.prefill_burst)
 
     def _install(self, req: Request, slot: int, wave: list) -> None:
         """Prefill a fresh request into the wave and seat it in ``slot``."""
@@ -213,7 +234,8 @@ class ServingEngine:
                    if self.active[s] is not None and s not in protected
                    and self.active[s].priority < req.priority]
         if victims:
-            raise NotImplementedError(f"preemption (swap/recompute) {_LATER}")
+            raise NotImplementedError(
+                f"preemption (swap/recompute) {_LATER.format(4)}")
         return False
 
     def _pool_headroom(self) -> int:
@@ -227,7 +249,7 @@ class ServingEngine:
         """Admit + one batched decode step; returns #active sequences."""
         n_live = self._step_inner()
         self._step_count += 1
-        if self.check_pool:
+        if self.check_pool and self.paged:
             self.kv.pool.check()
         return n_live
 
@@ -239,7 +261,7 @@ class ServingEngine:
         dev = self.device
         tokens = torch.from_numpy(self.tokens.copy()).to(dev)
         pos = self.pos.copy()                 # checked on the host
-        page_table = self.kv.page_table_device(dev)
+        page_table = self.kv.page_table_device(dev) if self.paged else None
         live_plan = None
         if self.fused:
             live_plan = tuple(
@@ -282,7 +304,9 @@ class ServingEngine:
             if self.step() == 0 and not self.queue:
                 return
         pending = sum(r is not None for r in self.active) + len(self.queue)
+        room = (f"pool headroom {self._pool_headroom()} of "
+                f"{self.kv.pool.n_pages} pages" if self.paged
+                else "dense layout")
         raise RuntimeError(
             f"run_to_completion: {max_steps} steps exhausted with {pending} "
-            f"requests still pending (pool headroom "
-            f"{self._pool_headroom()} of {self.kv.pool.n_pages} pages)")
+            f"requests still pending ({room})")

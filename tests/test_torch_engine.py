@@ -132,21 +132,18 @@ def test_engine_refuses_paths_of_later_slices():
     tcfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
     from repro_torch.models import api
     params = api.init_params(tcfg, seed=0, device="cpu")
-    for kw in (dict(spec_decode_k=2), dict(aging=3), dict(max_queue=4),
-               dict(paged_pool=False), dict(pool_shards=2),
-               dict(prefill_burst=False)):
-        with pytest.raises(NotImplementedError):
+    for kw, item in ((dict(spec_decode_k=2), 4), (dict(aging=3), 4),
+                     (dict(max_queue=4), 4), (dict(pool_shards=2), 8),
+                     (dict(fault_injector=object()), 4)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             ServingEngine(tcfg, params, max_slots=2, t_max=16, **kw)
     eng = ServingEngine(tcfg, params, max_slots=2, t_max=16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 4"):
         eng.submit(Request(0, np.zeros(3, np.int32), 2, deadline=4))
-    # a 1-token extent of 2 layers is 2 lines, off the N=4 write network:
-    # the reference splices it per leaf, a path of a later slice here
-    eng = ServingEngine(tcfg, params, max_slots=1, t_max=8, page_size=1,
-                        fused_gather=False)
-    eng.submit(Request(0, np.zeros(1, np.int32), 2))
-    with pytest.raises(NotImplementedError, match="splice"):
-        eng.step()
+    # the draft heads come with speculative decode
+    with pytest.raises(NotImplementedError, match="item 4"):
+        api.init_params(dataclasses.replace(tcfg, spec_heads=2), seed=0,
+                        device="cpu")
 
 
 def test_entry_points_need_a_device_or_an_explicit_cpu(monkeypatch):

@@ -146,9 +146,17 @@ def test_sparse_write_lands_in_place():
 
 
 def test_pad_layout_is_refused_until_its_slice():
-    fab = Fabric(FabricConfig(n_ports=N, lane_width=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BurstScheduler(fab, pack="pad")
+    """The pad layout is ported (its parity with the reference is held in
+    ``test_torch_dense_family.py``): it takes the fabric's ``pack`` and
+    pads a narrower stream to the widest; an unknown layout still raises."""
+    fab = Fabric(FabricConfig(n_ports=N, lane_width=2, pack="pad"))
+    sched = BurstScheduler(fab)
+    assert sched.pack == "pad"
+    sched.enqueue_read("a", torch.ones((N, N, 2)))
+    sched.enqueue_read("b", torch.ones((N, N, 3)))
+    out = sched.flush()
+    assert out["a"].shape == (1, N, N, 2) and out["b"].shape == (1, N, N, 3)
+    assert sched.stats.words_padded == N * N
     with pytest.raises(ValueError):
         BurstScheduler(fab, pack="dense")
 
