@@ -77,13 +77,31 @@ Phases (any fault exits non-zero):
    streamed through each step's read burst (one kernel-3 launch a step):
    tokens equal to the same engine's without it, the weight words per step
    checked; then kernel 3 at that weight tile;
-10. card vs CPU — the stablelm and gemma3 smoke configs in float32 agree
+10. preempt — oversubscribed serving at full width: (a) stablelm-1.6b, 8
+   requests (prompt 448, gen 64, priority i % 3, one arriving every 6
+   steps) on 4 slots and a 20-page pool under the swap arm and the
+   recompute arm, and unconstrained (the default 32-page pool, preemption
+   off); (b) gemma3-4b, 6 requests (prompt 1536, gen 32, every 4 steps) on
+   a 60-page pool, swap arm and unconstrained; (c) (a)'s swap arm with a
+   mid-step failure, an exhausted pool and a corrupted swap transfer; (d)
+   (a)'s unconstrained trace with speculative decode (3 draft heads).  The
+   swap, fault and speculative runs must serve the unconstrained tokens,
+   every swap-in must put the record's frames (and ring rows) back bit for
+   bit, the launches of kernels 1-2 must be exactly the decode steps',
+   admission waves' and swap transfers'; prints each arm's steps, peak
+   memory, swap transfers (wall time each, its parity share) and bytes;
+   then kernels 1-2 at each swap stream's shape, held and timed;
+11. card vs CPU — the stablelm and gemma3 smoke configs in float32 agree
    between the card and the CPU within 1e-4 (engine step; gemma3 one-shot);
-11. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+   the stablelm smoke through the reference's churn trace (swap,
+   recompute, swap with faults): tokens, ``SchedulerStats`` and the pool
+   state equal, cache bytes within 1e-4;
+12. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
    bytes or by operations, at that path's shapes; a matmul's entry also
-   names its route), the card line again, and the ``{"ok": true, ...}``
-   line last.
+   names its route; the swap streams' entries are the paths ``swap:
+   <arch>``), the card line again, and the ``{"ok": true, ...}`` line
+   last.
 
 ``--profile`` adds ``torch.profiler`` censuses (after the launch counts
 are read) of the stablelm engine's fused decode steps and of gemma3-4b's
@@ -157,6 +175,20 @@ SC_FALLBACK = "starcoder2-15b paged fallback"
 ONE_SHOT_12B = "gemma3-12b one-shot"
 FSDP = "stablelm-1.6b serve_fsdp"
 ZERO_LAUNCHES = {name: 0 for name in KERNELS}
+# the preempt phase: stablelm-1.6b's requests, one arriving every this many
+# engine steps, on a pool of this many pages (two full reaches of 8 pages
+# leave no room for a third; the default pool is 32); gemma3-4b's requests,
+# generated tokens, arrival interval and pool (reaches of 25 pages, the
+# default pool 100); the speculative-decode run's draft heads
+PREEMPT_REQUESTS, PREEMPT_EVERY, PREEMPT_POOL = 8, 6, 20
+GEMMA_SWAP_REQUESTS, GEMMA_SWAP_GEN, GEMMA_SWAP_EVERY = 6, 32, 4
+GEMMA_SWAP_POOL, SPEC_K = 60, 3
+# the float32 churn of the card-vs-CPU phase (the reference's churn trace,
+# tests/test_preemption.py): arrival step, prompt, generated, priority
+CHURN_SPEC = ((0, 7, 8, 0), (0, 8, 8, 0), (2, 9, 6, 2), (3, 7, 6, 1),
+              (4, 6, 6, 2))
+# host seconds in the swap path's parity words, by where the bytes lie
+PARITY = {"host_s": 0.0, "device_s": 0.0}
 
 
 def fail(msg: str) -> None:
@@ -208,6 +240,16 @@ def time_ms(torch, fn, reps: int = REPS, flush=None,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def wall_ms(torch, fn) -> float:
+    """Host milliseconds of one call of ``fn()``, from a synchronized
+    device to a synchronized device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def host_us(torch, fn, calls: int = 1000) -> float:
@@ -451,6 +493,85 @@ def gather_edges(torch, gen, words, dev) -> None:
               f"{what}: a sentinel frame is not zeros")
 
 
+def sparse_rows(torch, words, lines, idx, n: int, label: str) -> dict:
+    """Kernels 1-2 at one stream's shape: the gather of ``idx``'s frames
+    from ``lines`` (``[L, N, W]`` int32 words), and the scatter of as many
+    random frames to the same rows of a pool shaped like ``lines``.  Each
+    is held bit for bit against its plain version and a second launch, and
+    timed (warm L2) beside its plain version and one library call; returns
+    the rows of the kernels line."""
+    from repro_torch.kernels import medusa_transpose as mt
+
+    w = lines.shape[2]
+    k = idx.shape[0]
+    rows = {}
+
+    # -- gather: a second launch gives the same bits --------------------------
+    got = mt.gather_burst_network_tiles(lines, idx, n)
+    err = bit_equal(torch, got, mt.gather_burst_plain(lines, idx, n),
+                    f"gather ({label} shape)")
+    bit_equal(torch, mt.gather_burst_network_tiles(lines, idx, n), got,
+              f"gather ({label}) launched again")
+    valid = int(((idx >= 0) & (idx < lines.shape[0])).sum())
+    nbytes = valid * n * w * 4 + k * 4 + k * n * w * 4
+    lib_valid = (idx >= 0) & (idx < lines.shape[0])
+    lib_idx = torch.where(lib_valid, idx, 0).long()
+
+    def gather_library():
+        t = lines.index_select(0, lib_idx) * lib_valid.view(-1, 1, 1)
+        return t.view(k // n, n, n, w).transpose(1, 2).contiguous()
+
+    bit_equal(torch, gather_library(), got, "gather library yardstick")
+    rows["gather_burst_network_tiles"] = dict(
+        max_abs_err=err, bytes=nbytes,
+        ms=time_ms(torch, lambda: mt.gather_burst_network_tiles(lines, idx,
+                                                                n)),
+        plain_ms=time_ms(torch, lambda: mt.gather_burst_plain(lines, idx, n)),
+        library_ms=time_ms(torch, gather_library),
+        # few calls: the device, not the host, would set the pace of more
+        host_us_per_call=host_us(torch, lambda: mt.gather_burst_network_tiles(
+            lines, idx, n), calls=100),
+        shape=f"lines {list(lines.shape)} int32, idx [{k}]")
+    print(f"gather ({label}): wrapper "
+          f"{rows['gather_burst_network_tiles']['host_us_per_call']:.2f} host "
+          f"us per call", flush=True)
+
+    # -- scatter: a second launch into a fresh copy and one applied again in
+    #    place give the same bits ---------------------------------------------
+    g = k // n
+    banked = words((g, n, n, w))
+    into0 = words(tuple(lines.shape))
+    into_k, into_p = into0.clone(), into0.clone()
+    mt.scatter_burst_network_tiles(banked, idx, into_k, n)
+    mt.scatter_burst_plain(banked, idx, into_p, n)
+    err = bit_equal(torch, into_k, into_p, f"scatter ({label} shape)")
+    again = into0.clone()
+    mt.scatter_burst_network_tiles(banked, idx, again, n)
+    bit_equal(torch, again, into_k, f"scatter ({label}) launched again")
+    mt.scatter_burst_network_tiles(banked, idx, again, n)
+    bit_equal(torch, again, into_k, f"scatter ({label}) applied twice")
+    live = idx[(idx >= 0) & (idx < into0.shape[0])]
+    check(live.unique().numel() == live.numel(), "scatter rows not unique")
+    nbytes = g * n * n * w * 4 + k * 4 + live.numel() * n * w * 4
+    lib_keep = ((idx >= 0) & (idx < into0.shape[0])).nonzero().view(-1)
+
+    def scatter_library():
+        src = banked.transpose(1, 2).reshape(k, n, w)
+        into_k.index_copy_(0, idx[lib_keep].long(), src[lib_keep])
+
+    rows["scatter_burst_network_tiles"] = dict(
+        max_abs_err=err, bytes=nbytes,
+        ms=time_ms(torch, lambda: mt.scatter_burst_network_tiles(
+            banked, idx, into_k, n)),
+        plain_ms=time_ms(torch, lambda: mt.scatter_burst_plain(
+            banked, idx, into_p, n)),
+        library_ms=time_ms(torch, scatter_library),
+        shape=f"banked {list(banked.shape)} int32, into "
+              f"{list(into0.shape)}")
+    del into0, into_k, into_p, banked, again
+    return rows
+
+
 def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     """Kernels 1-3 at one engine path's geometry: ``arch``'s fabric (N
     ports, a bf16 head vector folded into 32-bit words), its full-attention
@@ -480,72 +601,8 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     idx = cm.pool_rep_indices(torch.from_numpy(live_idx).to(dev), reps,
                               frames)
     lines = words((reps * frames, n, w))
-    k = idx.shape[0]
-    rows = {}
-
-    # -- gather: a second launch gives the same bits --------------------------
-    got = mt.gather_burst_network_tiles(lines, idx, n)
-    err = bit_equal(torch, got, mt.gather_burst_plain(lines, idx, n),
-                    f"gather ({arch} engine shape)")
-    bit_equal(torch, mt.gather_burst_network_tiles(lines, idx, n), got,
-              f"gather ({arch}) launched again")
-    valid = int(((idx >= 0) & (idx < lines.shape[0])).sum())
-    nbytes = valid * n * w * 4 + k * 4 + k * n * w * 4
-    lib_valid = (idx >= 0) & (idx < lines.shape[0])
-    lib_idx = torch.where(lib_valid, idx, 0).long()
-
-    def gather_library():
-        t = lines.index_select(0, lib_idx) * lib_valid.view(-1, 1, 1)
-        return t.view(k // n, n, n, w).transpose(1, 2).contiguous()
-
-    bit_equal(torch, gather_library(), got, "gather library yardstick")
-    rows["gather_burst_network_tiles"] = dict(
-        max_abs_err=err, bytes=nbytes,
-        ms=time_ms(torch, lambda: mt.gather_burst_network_tiles(lines, idx,
-                                                                n)),
-        plain_ms=time_ms(torch, lambda: mt.gather_burst_plain(lines, idx, n)),
-        library_ms=time_ms(torch, gather_library),
-        # few calls: the device, not the host, would set the pace of more
-        host_us_per_call=host_us(torch, lambda: mt.gather_burst_network_tiles(
-            lines, idx, n), calls=100),
-        shape=f"lines {list(lines.shape)} int32, idx [{k}]")
-    print(f"gather ({arch}): wrapper "
-          f"{rows['gather_burst_network_tiles']['host_us_per_call']:.2f} host "
-          f"us per call", flush=True)
-
-    # -- scatter: a second launch into a fresh copy and one applied again in
-    #    place give the same bits ---------------------------------------------
-    g = k // n
-    banked = words((g, n, n, w))
-    into0 = words((reps * frames, n, w))
-    into_k, into_p = into0.clone(), into0.clone()
-    mt.scatter_burst_network_tiles(banked, idx, into_k, n)
-    mt.scatter_burst_plain(banked, idx, into_p, n)
-    err = bit_equal(torch, into_k, into_p, f"scatter ({arch} engine shape)")
-    again = into0.clone()
-    mt.scatter_burst_network_tiles(banked, idx, again, n)
-    bit_equal(torch, again, into_k, f"scatter ({arch}) launched again")
-    mt.scatter_burst_network_tiles(banked, idx, again, n)
-    bit_equal(torch, again, into_k, f"scatter ({arch}) applied twice")
-    live = idx[(idx >= 0) & (idx < into0.shape[0])]
-    check(live.unique().numel() == live.numel(), "scatter rows not unique")
-    nbytes = g * n * n * w * 4 + k * 4 + live.numel() * n * w * 4
-    lib_keep = ((idx >= 0) & (idx < into0.shape[0])).nonzero().view(-1)
-
-    def scatter_library():
-        src = banked.transpose(1, 2).reshape(k, n, w)
-        into_k.index_copy_(0, idx[lib_keep].long(), src[lib_keep])
-
-    rows["scatter_burst_network_tiles"] = dict(
-        max_abs_err=err, bytes=nbytes,
-        ms=time_ms(torch, lambda: mt.scatter_burst_network_tiles(
-            banked, idx, into_k, n)),
-        plain_ms=time_ms(torch, lambda: mt.scatter_burst_plain(
-            banked, idx, into_p, n)),
-        library_ms=time_ms(torch, scatter_library),
-        shape=f"banked {list(banked.shape)} int32, into "
-              f"{list(into0.shape)}")
-    del into0, into_k, into_p, banked, again
+    rows = sparse_rows(torch, words, lines, idx, n, f"{arch} engine")
+    del lines
 
     # -- dense burst (the gather-after-burst path: both K/V pool streams
     #    packed on the word axis) ----------------------------------------------
@@ -561,7 +618,7 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
         plain_ms=time_ms(torch, lambda: mt.burst_network_plain(tile, n)),
         library_ms=time_ms(torch, lambda: tile.transpose(0, 1).contiguous()),
         shape=f"tile {list(tile.shape)} int32")
-    del tile, got, lines
+    del tile, got
     return rows
 
 
@@ -1590,9 +1647,511 @@ def fsdp_phase(torch, dev, rows) -> None:
     torch.cuda.empty_cache()
 
 
+class SwapProbe:
+    """Wraps one engine's ``kv.swap_out`` and ``kv.swap_in``: the host clock
+    around each call, ending in a synchronize, and the part of it spent in
+    the parity words (:data:`PARITY`); the attempts (a corrupted transfer
+    is sent twice) and bytes of each transfer; and, after each swap-in, the
+    movement check — the slot's frames gathered back at their new physical
+    rows, and its ring rows on their slot axis, bit-equal to its
+    ``SwapRecord``."""
+
+    def __init__(self, torch, eng):
+        kv = eng.kv
+        swap_out, swap_in = kv.swap_out, kv.swap_in
+        self.out_s, self.in_s, self.out_parity, self.in_parity = [], [], [], []
+        self.out_attempts = self.in_attempts = 0
+        self.bytes_out = self.bytes_in = self.rings_checked = 0
+
+        def clocked(fn, *args, **kwargs):
+            torch.cuda.synchronize()
+            p0 = PARITY["host_s"], PARITY["device_s"]
+            r0 = eng.fabric_stats.bursts_retried
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            parity = (PARITY["host_s"] - p0[0], PARITY["device_s"] - p0[1])
+            return out, wall, parity, 1 + eng.fabric_stats.bursts_retried - r0
+
+        def timed_out(slot, stats=None):
+            rec, wall, parity, attempts = clocked(swap_out, slot, stats=stats)
+            self.out_s.append(wall)
+            self.out_parity.append(parity)
+            self.out_attempts += attempts if rec.mapped else 0
+            self.bytes_out += sum(v.numel() * v.element_size() for v in
+                                  list(rec.frames.values())
+                                  + list(rec.unpaged.values()))
+            return rec
+
+        def timed_in(slot, rec, stats=None):
+            _, wall, parity, attempts = clocked(swap_in, slot, rec,
+                                                stats=stats)
+            self.in_s.append(wall)
+            self.in_parity.append(parity)
+            self.in_attempts += attempts if rec.mapped else 0
+            self.bytes_in += sum(v.numel() * v.element_size() for v in
+                                 list(rec.frames.values())
+                                 + list(rec.unpaged.values()))
+            span = rec.mapped * kv.table.page_size
+            for (kind, i, name), frames in rec.frames.items():
+                rows = torch.from_numpy(kv._rep_idx(
+                    kind, i, kv._phys_frames(slot, span))).long()
+                lines = kv._pool_lines(kind, i, name)
+                got = lines.index_select(0, rows.to(lines.device)).cpu()
+                check(got.dtype == frames.dtype and torch.equal(
+                    got.view(torch.int16), frames.view(torch.int16)),
+                      f"swap-in of slot {slot}: {kind}{i}/{name} frames at "
+                      f"their new rows differ from the swap record")
+            for key, leaf, axis in kv._unpaged_leaves():
+                got = leaf.narrow(axis, slot, 1).cpu()
+                check(torch.equal(got.view(torch.int16),
+                                  rec.unpaged[key].view(torch.int16)),
+                      f"swap-in of slot {slot}: ring rows {key} differ from "
+                      f"the swap record")
+                self.rings_checked += 1
+
+        kv.swap_out, kv.swap_in = timed_out, timed_in
+
+    def line(self) -> str:
+        def ms(xs):
+            return (f"{statistics.median(xs) * 1e3:.3f} ms median "
+                    f"({min(xs) * 1e3:.3f}-{max(xs) * 1e3:.3f})" if xs
+                    else "none")
+
+        def share(parity, walls):
+            if not walls:
+                return "none"
+            host = sum(p[0] for p in parity) / sum(walls)
+            dev = sum(p[1] for p in parity) / sum(walls)
+            return f"{host:.1%} host parity, {dev:.1%} device parity"
+        return (f"{len(self.out_s)} swap-outs ({self.bytes_out} bytes; "
+                f"{ms(self.out_s)} each; {share(self.out_parity, self.out_s)}"
+                f"), {len(self.in_s)} swap-ins ({self.bytes_in} bytes; "
+                f"{ms(self.in_s)} each; {share(self.in_parity, self.in_s)})")
+
+
+def time_parity() -> None:
+    """Put a host clock around the swap path's parity word (the module
+    function both transfer directions call), adding to :data:`PARITY` by
+    the device the bytes lie on; the device fold ends in a read-back."""
+    from repro_torch.fabric import paged_kv
+
+    inner = paged_kv._parity_word
+
+    def timed(t):
+        t0 = time.perf_counter()
+        out = inner(t)
+        PARITY["host_s" if t.device.type == "cpu" else "device_s"] += (
+            time.perf_counter() - t0)
+        return out
+    paged_kv._parity_word = timed
+
+
+def serve_arrivals(torch, cfg, params, prompts, gen_len: int, every: int,
+                   label: str, margins: bool = False, **engine_kw) -> dict:
+    """Serve ``prompts`` through an engine of ``ENGINE_SLOTS`` slots with
+    ``engine_kw``: request ``i`` has priority ``i % 3`` and arrives at
+    engine step ``every * i``.  Launch counts are reset just before, the
+    peak memory too; the pool is checked after every step and must be
+    empty at the end, every request must decode ``gen_len`` tokens inside
+    the vocab.  ``margins`` keeps the top-1/top-2 margin of every decoded
+    token.  Returns the tokens, step times, engine, swap probe, launch
+    counts, decode steps, the steps that preempted, the steps that started
+    with queued work, and more."""
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.serving import Request, ServingEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, max_slots=ENGINE_SLOTS,
+                        t_max=prompts.shape[1] + gen_len, check_pool=True,
+                        **engine_kw)
+    probe = SwapProbe(torch, eng)
+    reqs = [Request(i, prompts[i], max_new_tokens=gen_len, priority=i % 3)
+            for i in range(len(prompts))]
+    decodes, margin = [0], {}
+    decode = eng._decode
+
+    def counted(*args):
+        decodes[0] += 1
+        logits, caches = decode(*args)
+        if margins:
+            top2 = logits[:, 0].float().topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).tolist()
+            for s, r in enumerate(eng.active):
+                if r is not None:
+                    margin[(r.rid, len(r.generated))] = gap[s]
+        return logits, caches
+    eng._decode = counted
+    pend = list(range(len(reqs)))
+    steps, steady, preempting, queued_at, swaps = [], [], [], [], {}
+    mt.reset_launch_counts()
+    while pend or not eng.drained:
+        while pend and pend[0] * every <= eng.step_count:
+            eng.submit(reqs[pend.pop(0)])
+        if eng.queue:
+            queued_at.append(eng.step_count)
+        st, kv = eng.fabric_stats, eng.kv
+        before = st.preemptions, st.swap_bursts, kv.prefill_bursts
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        if st.preemptions > before[0]:
+            preempting.append(eng.step_count - 1)
+        if st.swap_bursts > before[1]:
+            swaps[eng.step_count - 1] = st.swap_bursts - before[1]
+        if (st.preemptions, st.swap_bursts, kv.prefill_bursts) == before:
+            steady.append(steps[-1])
+        check(eng.step_count < 100 * gen_len, f"{label}: did not drain")
+    counts = mt.launch_counts()
+    check(all(len(r.generated) == gen_len for r in reqs),
+          f"{label}: short streams")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{label}: token outside the vocab")
+    check(bool(torch.isfinite(eng.last_logits).all()),
+          f"{label}: non-finite logits")
+    check(eng.kv.pool.pages_in_use == 0 and not eng._swapped
+          and eng._swap_pages_used == 0,
+          f"{label}: pages or swap space left at the end")
+    out = dict(toks=[r.generated for r in reqs], steps=steps, eng=eng,
+               probe=probe, counts=counts, decodes=decodes[0],
+               preempting=preempting, queued_at=queued_at, margin=margin,
+               swaps=swaps,
+               steady=statistics.median(steady) if steady else float("nan"),
+               peak=torch.cuda.max_memory_allocated())
+    fs, pool = eng.fabric_stats, eng.kv.pool
+    print(f"{label}: {len(reqs)} requests x {gen_len} tokens in "
+          f"{eng.step_count} steps ({sum(steps):.3f}s); median step "
+          f"{statistics.median(steps) * 1e3:.3f} ms, median steady decode "
+          f"step (no admission, no swap) {out['steady'] * 1e3:.3f} ms over "
+          f"{len(steady)}; peak memory {out['peak'] / 2 ** 30:.2f} GiB; "
+          f"{fs.preemptions} preemptions, {pool.pages_swapped_out} pages "
+          f"swapped out, {pool.pages_swapped_in} in, {fs.swap_bursts} swap "
+          f"bursts ({fs.swap_out_words} words out, {fs.swap_in_words} in), "
+          f"{fs.bursts_retried} retried, {fs.faults_recovered} faults "
+          f"recovered; launches {counts}", flush=True)
+    print(f"{label}: {probe.line()}", flush=True)
+    return out
+
+
+def check_launches(run: dict, label: str) -> None:
+    """The fused engine's launches, exactly: per decode step one gather and
+    one scatter per K/V pool stream, one scatter per stream per admission
+    wave, and one gather (scatter) per stream per swap-out (swap-in)
+    attempt."""
+    eng, probe = run["eng"], run["probe"]
+    e = 2 * len(eng.kv.paged_entries)
+    want = {**ZERO_LAUNCHES,
+            "gather_burst_network_tiles": e * (run["decodes"]
+                                               + probe.out_attempts),
+            "scatter_burst_network_tiles": e * (run["decodes"]
+                                                + eng.kv.prefill_bursts
+                                                + probe.in_attempts)}
+    check(run["counts"] == want, f"{label}: launches {run['counts']} != {want}")
+
+
+def swap_stream(torch, words, cfg, pool_pages: int, reach: int, gen):
+    """Kernels 1-2's operands at one swap stream of ``cfg``'s engine: the
+    pool leaf of ``pool_pages`` pages as int32 line words, and the index
+    stream of a swap-out of a slot holding ``reach`` tokens (its pages
+    drawn from ``gen``), tiled over the layers and sentinel-padded to a
+    multiple of N, as ``PagedKVCache._swap_gather`` builds it."""
+    from repro_torch.fabric import FRAME_SENTINEL
+
+    n, ps = cfg.resolved_fabric.n_ports, cfg.resolved_fabric.page_size
+    reps = cfg.layer_types().count("A")
+    span = -(-reach // ps) * ps
+    frames = pool_pages * ps
+    pages = torch.randperm(pool_pages, generator=gen)[: span // ps]
+    t = torch.arange(span)
+    pf = pages[t // ps] * ps + t % ps
+    idx = (torch.arange(reps)[:, None] * frames + pf[None, :]).reshape(-1)
+    pad = (-idx.numel()) % n
+    idx = torch.cat([idx, torch.full((pad,), FRAME_SENTINEL)])
+    lines = words((reps * frames, n, cfg.resolved_head_dim // 2))
+    return lines, idx.to(torch.int32).to(lines.device), n
+
+
+def preempt_phase(torch, dev, rows) -> None:
+    """Oversubscribed serving at full width: (a) stablelm-1.6b, 8 requests
+    (prompt 448, gen 64, priority i % 3, arriving every 6 steps) on 4 slots
+    and a 20-page pool, under the swap arm, the recompute arm and an
+    unconstrained run (the default 32-page pool, preemption off); (c) the
+    swap arm again with a mid-step failure at its first preempting step,
+    an exhausted pool at a step with queued work and a corrupted swap
+    transfer; (d) the unconstrained run with speculative decode (k = 3);
+    (b) gemma3-4b, 6 requests (prompt 1536, gen 32, every 4 steps) on a
+    60-page pool under the swap arm and unconstrained.  Swap, faults and
+    speculative decode must serve the unconstrained tokens; every swap-in
+    restores the record's bits; kernels 1-2 at each swap stream's shape."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import FaultInjector
+
+    time_parity()
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    wgen = torch.Generator(device=dev)
+    wgen.manual_seed(3)
+
+    def words(shape):
+        info = torch.iinfo(torch.int32)
+        return torch.randint(info.min, info.max, shape, generator=wgen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+
+    # -- (a), (c), (d): stablelm-1.6b --------------------------------------
+    cfg, params = load_model(torch, dev, "stablelm-1.6b")
+    prompts = SyntheticLM(cfg, batch=PREEMPT_REQUESTS, seq=STABLELM_PROMPT,
+                          seed=0).batch_at(0)["tokens"]
+    slm = "preempt (a) stablelm-1.6b"
+    free = serve_arrivals(torch, cfg, params, prompts, 64, PREEMPT_EVERY,
+                          f"{slm} unconstrained", margins=True,
+                          preempt="off")
+    kv = free["eng"].kv
+    check(kv.pool.n_pages == ENGINE_SLOTS * kv.table.pages_per_slot
+          and not free["preempting"],
+          "the unconstrained run preempted or is not on the default pool")
+    del kv
+    check_launches(free, f"{slm} unconstrained")
+    swap = serve_arrivals(torch, cfg, params, prompts, 64, PREEMPT_EVERY,
+                          f"{slm} swap", pool_pages=PREEMPT_POOL,
+                          preempt="swap")
+    st, pool = swap["eng"].fabric_stats, swap["eng"].kv.pool
+    check(st.preemptions > 0 and st.swap_bursts > 0,
+          f"{slm} swap: nothing was swapped")
+    check(pool.pages_swapped_in == pool.pages_swapped_out > 0,
+          f"{slm} swap: {pool.pages_swapped_out} pages out, "
+          f"{pool.pages_swapped_in} in")
+    check(swap["toks"] == free["toks"],
+          f"{slm}: the swap arm served other tokens than the unconstrained "
+          f"run")
+    check_launches(swap, f"{slm} swap")
+    e = 2 * len(swap["eng"].kv.paged_entries)
+    swap_launch = {"gather_burst_network_tiles": e * swap["probe"].out_attempts,
+                   "scatter_burst_network_tiles":
+                       e * swap["probe"].in_attempts}
+    rec = serve_arrivals(torch, cfg, params, prompts, 64, PREEMPT_EVERY,
+                         f"{slm} recompute", pool_pages=PREEMPT_POOL,
+                         preempt="recompute")
+    check(rec["eng"].fabric_stats.preemptions > 0
+          and rec["eng"].fabric_stats.swap_bursts == 0,
+          f"{slm} recompute: no preemption, or a swap")
+    check_launches(rec, f"{slm} recompute")
+    matched, first = 0, None
+    for rid, (a, b) in enumerate(zip(rec["toks"], free["toks"])):
+        same = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    len(b))
+        matched += same
+        if same < len(b) and first is None:
+            first = (rid, same, free["margin"].get((rid, same)))
+    print(f"{slm} recompute: {matched} of {sum(map(len, free['toks']))} "
+          f"tokens equal to the unconstrained run's" + (
+              "" if first is None else
+              f"; first divergence: request {first[0]} token {first[1]}, "
+              f"unconstrained top-1/top-2 margin {first[2]}"), flush=True)
+
+    # (c) faults on the swap arm: a mid-step failure at the first step that
+    # preempts, an exhausted pool at the next step with queued work, and the
+    # first swap transfer the rollback does not undo corrupted (the failed
+    # attempt's transfers take the injector's first ordinals)
+    fail = swap["preempting"][0]
+    exhaust = next((s for s in swap["queued_at"] if s > fail),
+                   next(s for s in swap["queued_at"] if s != fail))
+    corrupt = swap["swaps"].get(fail, 0)
+    inj = FaultInjector(fail_at=(fail,), exhaust_pool_at=(exhaust,),
+                        corrupt_swap=(corrupt,))
+    faulted = serve_arrivals(torch, cfg, params, prompts, 64, PREEMPT_EVERY,
+                             f"preempt (c) stablelm-1.6b swap, faults at "
+                             f"steps {fail} (mid-step) and {exhaust} "
+                             f"(pool), swap transfer {corrupt} (corrupt)",
+                             pool_pages=PREEMPT_POOL, preempt="swap",
+                             fault_injector=inj)
+    fst = faulted["eng"].fabric_stats
+    check(faulted["toks"] == swap["toks"],
+          "preempt (c): the faulted run served other tokens")
+    check(fst.faults_recovered == 1 and fst.bursts_retried == 1
+          and inj.fired == {fail} and inj.exhaust_fired == {exhaust}
+          and inj.corrupted == 1,
+          f"preempt (c): {fst.faults_recovered} faults recovered, "
+          f"{fst.bursts_retried} bursts retried")
+    print(f"preempt (c): tokens equal to the swap arm's; median steady step "
+          f"with the injector's snapshot clone {faulted['steady'] * 1e3:.3f} "
+          f"ms against {swap['steady'] * 1e3:.3f} ms without it", flush=True)
+    # the snapshot alone, on the same engine's caches, and the copies a
+    # swap transfer makes over PCIe, alone, at one slot's bytes
+    eng = faulted["eng"]
+    nbytes = sum(leaf.numel() * leaf.element_size()
+                 for *_, leaf in eng._cache_leaves())
+    snap = [wall_ms(torch, eng._snapshot) for _ in range(10)]
+    per_slot = swap["probe"].bytes_out // max(1, len(swap["probe"].out_s))
+    block = torch.empty(per_slot // 2, dtype=torch.int16, device=dev)
+    host = block.cpu()
+    d2h = [wall_ms(torch, block.cpu) for _ in range(5)]
+    h2d = [wall_ms(torch, lambda: host.to(dev)) for _ in range(5)]
+    print(f"preempt (c): the snapshot (host state and a clone of "
+          f"{nbytes} bytes of cache leaves) {statistics.median(snap):.3f} ms "
+          f"median of 10; a {per_slot}-byte device-to-host copy (pageable) "
+          f"{statistics.median(d2h):.3f} ms and host-to-device "
+          f"{statistics.median(h2d):.3f} ms, median of 5", flush=True)
+    del eng, block, host
+
+    # (d) speculative decode on the unconstrained trace
+    spec = serve_arrivals(torch, cfg, params, prompts, 64, PREEMPT_EVERY,
+                          f"preempt (d) stablelm-1.6b spec_decode_k="
+                          f"{SPEC_K}", preempt="off", spec_decode_k=SPEC_K)
+    check(spec["toks"] == free["toks"],
+          "preempt (d): speculative decode served other tokens")
+    check_launches(spec, "preempt (d)")
+    se = spec["eng"]
+    check(se.spec_proposed > 0, "preempt (d): no draft proposed")
+    print(f"preempt (d): tokens equal to the unconstrained run's; "
+          f"{se.spec_proposed} proposed, {se.spec_accepted} accepted, "
+          f"{se.spec_rejected} rejected (acceptance "
+          f"{se.spec_acceptance:.2%}, random draft heads)", flush=True)
+    del params, free, swap, rec, faulted, spec, se
+    free_model(torch, "preempt stablelm-1.6b")
+    lines, idx, n = swap_stream(torch, words, cfg, PREEMPT_POOL,
+                                STABLELM_PROMPT + 64, gen)
+    rows["swap: stablelm-1.6b"] = sparse_rows(torch, words, lines, idx, n,
+                                              "swap: stablelm-1.6b")
+    del lines, idx
+    for name, r in rows["swap: stablelm-1.6b"].items():
+        r["launches"] = swap_launch[name]
+
+    # -- (b): gemma3-4b, the ring leaves -----------------------------------
+    cfg, params = load_model(torch, dev, "gemma3-4b")
+    prompts = SyntheticLM(cfg, batch=GEMMA_SWAP_REQUESTS, seq=GEMMA_PROMPT,
+                          seed=0).batch_at(0)["tokens"]
+    g3 = "preempt (b) gemma3-4b"
+    free = serve_arrivals(torch, cfg, params, prompts, GEMMA_SWAP_GEN,
+                          GEMMA_SWAP_EVERY, f"{g3} unconstrained",
+                          preempt="off")
+    check_launches(free, f"{g3} unconstrained")
+    swap = serve_arrivals(torch, cfg, params, prompts, GEMMA_SWAP_GEN,
+                          GEMMA_SWAP_EVERY, f"{g3} swap",
+                          pool_pages=GEMMA_SWAP_POOL, preempt="swap")
+    check(swap["eng"].fabric_stats.swap_bursts > 0
+          and swap["probe"].rings_checked > 0,
+          f"{g3}: no swap, or no ring rows restored")
+    check(swap["toks"] == free["toks"],
+          f"{g3}: the swap arm served other tokens than the unconstrained run")
+    check_launches(swap, f"{g3} swap")
+    e = 2 * len(swap["eng"].kv.paged_entries)
+    swap_launch = {"gather_burst_network_tiles": e * swap["probe"].out_attempts,
+                   "scatter_burst_network_tiles":
+                       e * swap["probe"].in_attempts}
+    print(f"{g3}: swap tokens equal to the unconstrained run's; "
+          f"{swap['probe'].rings_checked} ring-row slices restored bit for "
+          f"bit", flush=True)
+    del params, free, swap
+    free_model(torch, "preempt gemma3-4b")
+    lines, idx, n = swap_stream(torch, words, cfg, GEMMA_SWAP_POOL,
+                                GEMMA_PROMPT + GEMMA_SWAP_GEN, gen)
+    rows["swap: gemma3-4b"] = sparse_rows(torch, words, lines, idx, n,
+                                          "swap: gemma3-4b")
+    del lines, idx
+    for name, r in rows["swap: gemma3-4b"].items():
+        r["launches"] = swap_launch[name]
+    torch.cuda.synchronize()
+    for path in ("swap: stablelm-1.6b", "swap: gemma3-4b"):
+        for name, r in rows[path].items():
+            set_bound(r)
+            print_row(name, path, r)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def churn_card_vs_cpu(torch, dev) -> None:
+    """The float32 stablelm smoke through the reference's churn trace
+    (:data:`CHURN_SPEC`, a 7-page pool, 2 slots, page 4) on the card and on
+    the CPU: the swap arm, the recompute arm, and the swap arm with a
+    mid-step failure at its first preempting step and a corrupted swap
+    transfer.  Tokens, every ``SchedulerStats`` field and the pool's state
+    must be equal; the pool and ring bytes (computed K/V) within 1e-4.  The
+    faulted arm corrupts the first swap transfer the rollback does not
+    undo, so it is retried."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.serving import Request, ServingEngine
+
+    small = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
+    params = {"cpu": api.init_params(small, seed=1, device="cpu")}
+    params["gpu"] = api.init_params(small, seed=1, device="cpu").to(dev)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, small.vocab_size, (pl,), generator=gen,
+                             dtype=torch.int32).numpy()
+               for _, pl, _, _ in CHURN_SPEC]
+
+    def run(p, preempt, inj):
+        """One churn; returns its tokens, stats, pool state and leaves, the
+        first step that preempted and the swap transfers made in it."""
+        eng = ServingEngine(small, p, max_slots=2, t_max=24, page_size=4,
+                            pool_pages=7, preempt=preempt, check_pool=True,
+                            fault_injector=inj)
+        reqs = [Request(i, prompts[i], max_new_tokens=mn, priority=pri)
+                for i, (_, _, mn, pri) in enumerate(CHURN_SPEC)]
+        pend, first, swaps = list(range(len(reqs))), None, 0
+        while pend or not eng.drained:
+            while pend and CHURN_SPEC[pend[0]][0] <= eng.step_count:
+                eng.submit(reqs[pend.pop(0)])
+            st = eng.fabric_stats
+            before = st.preemptions, st.swap_bursts
+            eng.step()
+            if first is None and st.preemptions > before[0]:
+                first, swaps = eng.step_count - 1, st.swap_bursts - before[1]
+            check(eng.step_count < 300, "churn did not drain")
+        pool = eng.kv.pool
+        return dict(
+            toks=[r.generated for r in reqs],
+            stats=dataclasses.asdict(eng.fabric_stats),
+            pool=(pool.table.tolist(), [list(s) for s in pool._free_by_shard],
+                  pool.pages_allocated, pool.pages_reclaimed,
+                  pool.pages_swapped_out, pool.pages_swapped_in),
+            leaves=[leaf.cpu() for *_, leaf in eng._cache_leaves()],
+            first=first, swaps=swaps)
+
+    base = run(params["cpu"], "swap", None)
+    check(base["first"] is not None, "the churn never preempted")
+    for arm, preempt, faults in (
+            ("swap", "swap", None), ("recompute", "recompute", None),
+            ("swap + faults", "swap",
+             dict(fail_at=(base["first"],),
+                  corrupt_swap=(base["swaps"],)))):
+        out = {dev_name: run(p, preempt, None if faults is None else
+                             FaultInjector(**faults))
+               for dev_name, p in params.items()}
+        a, c = out["gpu"], out["cpu"]
+        check(a["toks"] == c["toks"], f"churn {arm}: card and CPU tokens "
+              f"differ")
+        check(a["stats"] == c["stats"], f"churn {arm}: card and CPU "
+              f"SchedulerStats differ: {a['stats']} vs {c['stats']}")
+        check(a["pool"] == c["pool"], f"churn {arm}: card and CPU pool state "
+              f"differs")
+        err = max(float((x - y).abs().max()) for x, y in
+                  zip(a["leaves"], c["leaves"]))
+        same = sum(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(a["leaves"], c["leaves"]))
+        check(err <= 1e-4, f"churn {arm}: pool bytes differ by {err}")
+        if faults is not None:
+            check(a["stats"]["faults_recovered"] == 1
+                  and a["stats"]["bursts_retried"] == 1,
+                  f"churn {arm}: the faults were not recovered")
+        st = a["stats"]
+        print(f"smoke stablelm-1.6b float32 churn ({arm}) card vs CPU: "
+              f"tokens, all SchedulerStats fields and the pool state equal "
+              f"({st['preemptions']} preemptions, {st['swap_bursts']} swap "
+              f"bursts, {st['bursts_retried']} retried, "
+              f"{st['faults_recovered']} faults recovered); cache leaves max "
+              f"abs diff {err:.2e} (tolerance 1e-4), {same} of "
+              f"{len(a['leaves'])} leaves bit-equal", flush=True)
+
+
 def card_vs_cpu(torch, dev):
     """The smoke configs in float32, the same parameters on both devices:
-    first-step logits within 1e-4 (engine step; gemma3 also one-shot)."""
+    first-step logits within 1e-4 (engine step; gemma3 also one-shot);
+    then the oversubscribed churn (:func:`churn_card_vs_cpu`)."""
     from repro_torch.configs import get_smoke
     from repro_torch.data import SyntheticLM
     from repro_torch.models import api
@@ -1632,6 +2191,7 @@ def card_vs_cpu(torch, dev):
             e.run_to_completion()
         check(all(r is None for r in engs["gpu"].active),
               f"{arch} smoke not drained")
+    churn_card_vs_cpu(torch, dev)
 
 
 def ptxas_report(build, names=("stream_matmul", "burst_network",
@@ -1699,6 +2259,7 @@ def main() -> None:
     starcoder2_phase(torch, dev, rows)
     gemma3_12b_phase(torch, dev, rows)
     fsdp_phase(torch, dev, rows)
+    preempt_phase(torch, dev, rows)
     card_vs_cpu(torch, dev)
 
     # one entry per kernel and path: its launches on that path's runs, its

@@ -2,7 +2,8 @@
 
 The input is the reference's parameter tree with every leaf already a
 numpy array (``{"embed": {"table"}, "unit": [stacked block dicts], "tail":
-[...], "final_norm": {...}}``), so this module needs no JAX.  Weights keep
+[...], "final_norm": {...}}``, and ``"draft": {"w"}`` with Medusa draft
+heads), so this module needs no JAX.  Weights keep
 the reference's ``[d_in, d_out]`` orientation (the port computes ``x @ w``
 too, so nothing is transposed); the stacked ``unit`` axis splits into one
 :class:`repro_torch.models.lm.Block` per repetition.  bfloat16 leaves
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import LM, pattern_unit
+from repro_torch.models.lm import LM, pattern_unit, with_draft
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -57,4 +58,13 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> LM:
     for i, block in enumerate(params.tail):
         for part in ("norm1", "attn", "norm2", "ffn"):
             _load(getattr(block, part), np_params["tail"][i][part], dev)
+    if "draft" in np_params:
+        if params.draft is None:          # heads the config does not count
+            params = with_draft(params, {"w": torch.empty(
+                np.shape(np_params["draft"]["w"]), dtype=cfg.param_dtype,
+                device=dev)})
+        _load(params.draft, np_params["draft"], dev)
+    elif params.draft is not None:
+        raise ValueError(f"the config asks for {cfg.spec_heads} draft heads "
+                         f"but the parameters carry none")
     return params

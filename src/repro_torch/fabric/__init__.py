@@ -1,14 +1,16 @@
 """``repro_torch.fabric`` — the memory-movement subsystem (port of
 ``repro.fabric``): the :class:`Fabric` networks, the :class:`BurstScheduler`
 that multiplexes logical streams through one network call per burst, and
-the :class:`PagedKVCache` page pool the serving engine stores KV in."""
+the :class:`PagedKVCache` page pool the serving engine stores KV in, with
+its host swap space (:class:`SwapRecord`)."""
 
 from repro_torch.configs.base import FabricConfig, PortSpec
 from repro_torch.fabric.fabric import Fabric
-from repro_torch.fabric.paged_kv import PagedKVCache, PagePool, PageTable
+from repro_torch.fabric.paged_kv import (PagedKVCache, PagePool, PageTable,
+                                         SwapRecord)
 from repro_torch.fabric.scheduler import (FRAME_SENTINEL, BurstScheduler,
                                           SchedulerStats)
 
 __all__ = ["Fabric", "FabricConfig", "PortSpec", "BurstScheduler",
            "SchedulerStats", "PagedKVCache", "PagePool", "PageTable",
-           "FRAME_SENTINEL"]
+           "SwapRecord", "FRAME_SENTINEL"]

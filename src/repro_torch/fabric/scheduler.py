@@ -54,9 +54,11 @@ class SchedulerStats:
     lowered through a fused kernel, ``words_live``/``gather_fused_bursts``
     the sparse-extent traffic, ``prefill_bursts`` admission waves
     installed through one write burst, and ``words_padded`` the zero fill
-    of the ``pack="pad"`` layout.  The remaining counters belong to paths
-    ported in later slices (sharded pool, preemption, admission control,
-    MoE) and stay zero here."""
+    of the ``pack="pad"`` layout.  The engine adds its preemption, swap,
+    fault-recovery and admission-control counters (``preemptions`` ...
+    ``aging_promotions``); ``words_cross_shard``, ``collective_calls`` and
+    ``tokens_dropped`` belong to paths ported in later slices (the sharded
+    pool, MoE) and stay zero here."""
     streams_served: int = 0
     flushes: int = 0
     network_calls: int = 0

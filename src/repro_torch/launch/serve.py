@@ -24,7 +24,19 @@ either mode.  Two modes, as the reference's:
   (``fused``, or an explicit geometry off one port per KV head) decodes
   through the per-layer paged path.
 
-Prints throughput, the fabric census (engine) and the kernel launch counts.
+Under oversubscription the engine degrades as the reference's does:
+``--priority-classes`` spreads the requests over priority classes (request
+``i`` gets ``i % P``), ``--preempt {swap,recompute,off}`` picks the victim
+policy (swap the victim's pages to the host over the ``swap/*`` streams —
+the gather and scatter kernels on the card — or drop them and re-prefill),
+``--swap-space-pages`` caps the host swap space, ``--check-pool`` runs the
+pool's conservation invariant every step, ``--aging`` turns on
+anti-starvation aging, ``--max-queue`` bounds the submit queue, and
+``--spec-decode-k`` turns on Medusa-heads speculative decode (the same
+token stream, with the acceptance census).
+
+Prints throughput, the fabric census, the preemption, admission and
+speculative-decode censuses (engine) and the kernel launch counts.
 """
 
 from __future__ import annotations
@@ -89,6 +101,36 @@ def main(argv=None):
     ap.add_argument("--serve-fsdp", action="store_true",
                     help="stream the weights through the decode step's "
                          "read burst (weight_stream ports)")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="spread the requests over this many priority "
+                         "classes (request i gets priority i %% P); higher "
+                         "classes preempt lower ones on a full pool")
+    ap.add_argument("--preempt", default=None,
+                    choices=["swap", "recompute", "off"],
+                    help="victim policy when a higher-priority request "
+                         "would wait: swap the victim's pages to the host "
+                         "over the swap/* streams, drop them and re-prefill, "
+                         "or off = the head-of-line gate (default: the "
+                         "config's, swap)")
+    ap.add_argument("--swap-space-pages", type=int, default=None,
+                    help="host swap-space cap in pages; evictions beyond it "
+                         "fall back to recompute (default: the config's, "
+                         "0 = unbounded)")
+    ap.add_argument("--check-pool", action="store_true",
+                    help="run the pool's free-list conservation invariant "
+                         "after every engine step")
+    ap.add_argument("--aging", type=int, default=0,
+                    help="anti-starvation aging: every this-many steps a "
+                         "request waits raise its effective priority one "
+                         "class (0 = strict priority order)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded submit queue: submits beyond this depth "
+                         "are shed (0 = unbounded)")
+    ap.add_argument("--spec-decode-k", type=int, default=0,
+                    help="Medusa-heads speculative decode: k draft heads "
+                         "propose a branch per slot each step and the "
+                         "engine accepts its longest prefix matching the "
+                         "committed argmax (the token stream of k=0)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -118,6 +160,9 @@ def main(argv=None):
             cfg.resolved_fabric, **fab_over))
     if args.serve_fsdp:
         cfg = dataclasses.replace(cfg, serve_fsdp=True)
+    if args.spec_decode_k:
+        # the draft heads are model parameters: init_params draws them
+        cfg = dataclasses.replace(cfg, spec_heads=args.spec_decode_k)
     fab = cfg.resolved_fabric
     data = SyntheticLM(cfg, batch=args.batch, seq=args.prompt_len,
                        seed=args.seed)
@@ -145,8 +190,14 @@ def main(argv=None):
         return
     eng = ServingEngine(cfg, params, max_slots=args.batch, t_max=t_max,
                         pool_pages=args.pool_pages,
-                        fused_gather=args.fused_gather)
-    reqs = [Request(i, prompts[i], max_new_tokens=args.gen_len)
+                        fused_gather=args.fused_gather,
+                        preempt=args.preempt,
+                        swap_space_pages=args.swap_space_pages,
+                        check_pool=args.check_pool,
+                        spec_decode_k=args.spec_decode_k,
+                        aging=args.aging, max_queue=args.max_queue)
+    reqs = [Request(i, prompts[i], max_new_tokens=args.gen_len,
+                    priority=i % max(args.priority_classes, 1))
             for i in range(args.batch)]
     for r in reqs:
         eng.submit(r)
@@ -172,6 +223,17 @@ def main(argv=None):
               f"allocated, {pool.pages_reclaimed} reclaimed, "
               f"{pool.pages_in_use} in use at exit; {kv.prefill_bursts} "
               f"prefill write bursts, {kv.prefill_splices} prefill splices")
+        print(f"preemption[{eng.preempt}]: {fs.preemptions} preemptions; "
+              f"swap {pool.pages_swapped_out} pages out / "
+              f"{pool.pages_swapped_in} back ({fs.swap_out_words} words "
+              f"out, {fs.swap_in_words} in over {fs.swap_bursts} swap "
+              f"bursts); {fs.bursts_retried} bursts retried, "
+              f"{fs.faults_recovered} faults recovered")
+        print(f"admission: {fs.requests_shed} shed ({fs.shed_queue_full} "
+              f"queue-full, {fs.shed_deadline} unmeetable-deadline); SLO "
+              f"misses {fs.slo_missed_served} served late + "
+              f"{fs.slo_missed_shed} shed; {fs.aging_promotions} aging "
+              f"promotions")
     print(f"fabric over the run: {fs.network_calls} network calls for "
           f"{fs.streams_served} streams over {fs.flushes} bursts "
           f"({fs.words_moved} words moved, {fs.words_padded} padded, "
@@ -187,6 +249,10 @@ def main(argv=None):
     else:
         print("fused gather: off — the step banks the whole pool (gathering "
               "after the burst) or the dense per-slot caches")
+    if eng.spec_k:
+        print(f"speculative decode[k={eng.spec_k}]: {eng.spec_accepted}/"
+              f"{eng.spec_proposed} draft tokens accepted "
+              f"({eng.spec_acceptance:.1%}), {eng.spec_rejected} rejected")
     print(f"kernel launches: {mt.launch_counts()}")
     print("sample:", reqs[0].generated[:16])
 

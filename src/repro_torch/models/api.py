@@ -38,13 +38,15 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
 
 def decode_fn(params: lm.LM, token, caches, pos, cfg: ModelConfig,
               sched=None, page_table=None, page_size: int = 0,
-              t_depth: int = 0, live_plan=None):
+              t_depth: int = 0, live_plan=None, draft: bool = False):
     """One decode step: the per-layer path without ``sched``, the
     burst-scheduled step with a ``BurstScheduler`` (see
-    :func:`repro_torch.models.lm.decode_step`)."""
+    :func:`repro_torch.models.lm.decode_step`).  ``draft`` appends the
+    Medusa draft heads' logits (``[B, 1+k, V]``, row 0 the real
+    unembedding's)."""
     return lm.decode_step(params, token, caches, pos, cfg, sched=sched,
                           page_table=page_table, page_size=page_size,
-                          t_depth=t_depth, live_plan=live_plan)
+                          t_depth=t_depth, live_plan=live_plan, draft=draft)
 
 
 def greedy_generate(params: lm.LM, prompt: torch.Tensor, cfg: ModelConfig,

@@ -2,8 +2,8 @@
 the dense decoder runs): norms, RoPE, attention for prefill, for the
 per-layer cached decode (through the fabric's KV layout engine, or
 line-major on the ``fused`` fabric) and for port-major decode, the KV
-banking relabels, the page-pool plan helpers, the MLP, embeddings and
-logits.
+banking relabels, the page-pool plan helpers, the MLP, embeddings,
+logits and the Medusa draft heads.
 
 The numerics follow the reference op for op, so the two packages compare
 within float32 rounding: layer norm in float32 with eps 1e-5, RoPE
@@ -455,3 +455,27 @@ def logits_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x.float(), p["table"].float())
     return torch.einsum("bsd,dv->bsv", x.float(), p["head"].float())
+
+
+def draft_head_params(gen: torch.Generator, cfg, dtype, device) -> dict:
+    """Medusa-style draft heads: ``cfg.spec_heads`` residual projections
+    ``d_model → d_model`` (SiLU) off the final-norm hidden state, ``{"w":
+    [k, d, d]}``, drawn from ``gen`` as :func:`repro_torch.models.lm.
+    init_params` draws a projection (truncated normal over ``1/sqrt(d)``).
+    Their logits come from the shared unembedding, so a head adds ``d²``
+    parameters, not ``d·V``.  The numbers are not the reference's."""
+    d = cfg.d_model
+    draw = torch.empty((cfg.spec_heads, d, d), dtype=torch.float32,
+                       device=device)
+    torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return {"w": (draw * (1.0 / math.sqrt(d))).to(dtype)}
+
+
+def draft_logits(p_draft, x: torch.Tensor, p_embed, cfg) -> torch.Tensor:
+    """``x [B, S, d]`` (final-norm hidden state) → ``[B, k, V]`` draft-head
+    logits off the last position: head ``i`` proposes the token ``i+1``
+    steps ahead of the one the real unembedding scores."""
+    last = x[:, -1]                                         # [B, d]
+    h = last[:, None, :] + F.silu(
+        torch.einsum("bd,kde->bke", last, p_draft["w"]))   # [B, k, d]
+    return logits_apply(p_embed, h, cfg)

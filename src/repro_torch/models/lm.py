@@ -1,8 +1,8 @@
 """Decoder-only LM (port of ``repro.models.lm`` for full-attention ``A``
 and sliding-window ``L`` blocks): parameters, caches, prefill, the
-per-layer decode step (over dense caches or, gathered, over the page pool)
-and the burst-scheduled decode step (with ``serve_fsdp`` weight
-streaming).
+per-layer decode step (over dense caches or, gathered, over the page pool),
+the burst-scheduled decode step (with ``serve_fsdp`` weight
+streaming), and the Medusa draft heads any decode step can append.
 
 Parameters are an :class:`LM` module: one :class:`Block` per layer
 (``LM.unit[i][r]`` is pattern position ``i`` of repetition ``r``, the
@@ -49,10 +49,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             or cfg.n_patches or cfg.encoder_layers \
             or any(t not in ("A", "L") for t in cfg.layer_types()):
         raise NotImplementedError(_OTHER_FAMILIES)
-    if cfg.spec_heads:
-        raise NotImplementedError(
-            "the draft heads come with speculative decode, in a later slice "
-            "(ROADMAP §1 item 4)")
 
 
 # ----------------------------------------------------------------------------
@@ -110,13 +106,31 @@ class LM(nn.Module):
             for _ in (unit if reps > 0 else ""))
         self.tail = nn.ModuleList(Block(cfg, dtype, device) for _ in tail)
         self.final_norm = _norm(cfg, dtype, device)
+        # Medusa draft heads (``cfg.spec_heads``): {"w": [k, d, d]}, or None
+        self.draft = (_params({"w": (cfg.spec_heads, cfg.d_model,
+                                     cfg.d_model)}, dtype, device)
+                      if cfg.spec_heads else None)
+
+
+def with_draft(params: LM, draft: dict) -> LM:
+    """An :class:`LM` sharing ``params``' layers whose draft heads are
+    ``draft`` (``{"w": [k, d, d]}``); ``params`` itself is not changed."""
+    out = LM.__new__(LM)
+    nn.Module.__init__(out)
+    out.embed, out.final_norm = params.embed, params.final_norm
+    out.unit, out.tail = params.unit, params.tail
+    out.draft = nn.ParameterDict({
+        name: nn.Parameter(t, requires_grad=False)
+        for name, t in draft.items()})
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     """Random parameters on ``device`` from a seeded ``torch.Generator``:
     truncated normals scaled like the reference (``1/sqrt(d_in)`` for
     projections, ``1/sqrt(d_model)`` for the embedding), norms at their
-    identity.  The numbers are not the reference's ``jax.random`` draws."""
+    identity; the draft heads (``cfg.spec_heads``) like a projection.  The
+    numbers are not the reference's ``jax.random`` draws."""
     dev = resolve_device(device)
     params = LM(cfg, dev)
     gen = torch.Generator(device=dev)
@@ -126,7 +140,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
         if leaf in ("scale", "bias"):
             p.fill_(1.0 if (leaf == "scale" and cfg.norm != "rms") else 0.0)
             continue
-        fan_in = p.shape[1] if leaf == "table" else p.shape[0]
+        # [V, d] table, [d_in, d_out] projections, [k, d_in, d_out] heads
+        fan_in = p.shape[1] if leaf == "table" else p.shape[-2]
         draw = torch.empty(p.shape, dtype=torch.float32, device=dev)
         torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
         p.copy_(draw * (1.0 / math.sqrt(fan_in)))
@@ -335,12 +350,28 @@ def _check_positions(pos, caches, cfg: ModelConfig, page_table,
     return host
 
 
+def _emit_logits(params, x: torch.Tensor, cfg: ModelConfig,
+                 draft: bool) -> torch.Tensor:
+    """Step logits off the final-norm hidden state.  With ``draft`` (and
+    draft heads in ``params``) the k Medusa draft heads' logits follow the
+    real unembedding's along the position axis: ``[B, 1+k, V]``, row 0
+    the very tensor the step returns without ``draft``."""
+    logits = cm.logits_apply(params.embed, x, cfg)
+    heads = getattr(params, "draft", None)
+    if draft and heads is not None:
+        logits = torch.cat(
+            [logits, cm.draft_logits(heads, x, params.embed, cfg)], dim=1)
+    return logits
+
+
 def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
                 page_table=None, page_size: int = 0, t_depth: int = 0,
-                live_plan=None):
+                live_plan=None, draft: bool = False):
     """One decode step: ``token [B, 1]`` + caches at ``pos`` (scalar, or per
     slot ``[B]``; a host value or a tensor) → ``(logits [B, 1, V],
     caches)``.  Positions outside the cache depth raise ``ValueError``.
+    With ``draft`` the Medusa draft heads ride along on every path: the
+    logits become ``[B, 1+k, V]``, row 0 unchanged (:func:`_emit_logits`).
 
     Without ``sched`` this is the per-layer path: every layer writes the
     new token's K/V into its line-major (or ring) cache and reads the cache
@@ -376,26 +407,28 @@ def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
     if plan is not None:
         live = live_plan if phys is not None else None
         return _decode_step_scheduled(params, token, caches, pos, positions,
-                                      cfg, sched, plan, phys=phys, live=live)
+                                      cfg, sched, plan, phys=phys, live=live,
+                                      draft=draft)
     if phys is not None:
         return _decode_step_paged_fallback(params, token, caches, pos,
-                                           positions, cfg, phys)
-    return _decode_step_layers(params, token, caches, pos, positions, cfg)
+                                           positions, cfg, phys, draft=draft)
+    return _decode_step_layers(params, token, caches, pos, positions, cfg,
+                               draft=draft)
 
 
 def _decode_step_layers(params: LM, token, caches, pos, positions,
-                        cfg: ModelConfig):
+                        cfg: ModelConfig, draft: bool = False):
     """The per-layer decode step (see :func:`decode_step`)."""
     x = cm.embed_apply(params.embed, token)
     for t, kind, i, r, block in _layers(params, cfg):
         x, _ = _block_apply(t, block, x, cfg, positions=positions,
                             cache=_layer_cache(caches, kind, i, r), pos=pos)
     x = cm.apply_norm(x, params.final_norm, cfg.norm)
-    return cm.logits_apply(params.embed, x, cfg), caches
+    return _emit_logits(params, x, cfg, draft), caches
 
 
 def _decode_step_paged_fallback(params: LM, token, caches, pos, positions,
-                                cfg: ModelConfig, phys):
+                                cfg: ModelConfig, phys, draft: bool = False):
     """The per-layer paged decode (no scheduler, an off-geometry fabric, or
     the ``fused`` fabric): gather each pool leaf into its dense line-major
     view ``[lead..., B, T, Hkv, D]`` through ``phys``, run the per-layer
@@ -410,7 +443,7 @@ def _decode_step_paged_fallback(params: LM, token, caches, pos, positions,
             dense[kind][i][name] = cm.gather_pool_frames(flat, phys,
                                                          flat.ndim - 3)
     logits, _ = _decode_step_layers(params, token, dense, pos, positions,
-                                    cfg)
+                                    cfg, draft=draft)
     for kind, i in entries:
         for name, pool in caches[kind][i].items():
             cm.scatter_pool_frames(_flat_frames(pool), dense[kind][i][name],
@@ -445,7 +478,7 @@ def _burst_plan(cfg: ModelConfig, caches):
 
 def _decode_step_scheduled(params: LM, token, caches, pos, positions,
                            cfg: ModelConfig, sched, plan, phys=None,
-                           live=None):
+                           live=None, draft: bool = False):
     """The burst-scheduled decode step (see :func:`decode_step`)."""
     if live is not None:
         live_idx, expand, dense_pos = live
@@ -562,7 +595,7 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
             for leaf_name in ("k", "v")}
 
     x = cm.apply_norm(x, params.final_norm, cfg.norm)
-    return cm.logits_apply(params.embed, x, cfg), new_caches
+    return _emit_logits(params, x, cfg, draft), new_caches
 
 
 # The block's parameter groups in the reference tree's sorted key order.
@@ -571,10 +604,14 @@ _PARTS = ("attn", "ffn", "norm1", "norm2")
 
 def _weight_slots(params):
     """The reference's parameter leaves in its ``tree_flatten`` order (dict
-    keys sorted: ``embed``, ``final_norm``, ``tail``, ``unit``; lists in
-    order), each as its ``(dict, name)`` slots in ``params`` (an
-    :class:`LM`, or the step's copy of one): one slot per repetition for a
-    ``unit`` leaf, which the reference stacks into one leaf, else one."""
+    keys sorted: ``draft`` when there are draft heads, ``embed``,
+    ``final_norm``, ``tail``, ``unit``; lists in order), each as its
+    ``(dict, name)`` slots in ``params`` (an :class:`LM`, or the step's
+    copy of one): one slot per repetition for a ``unit`` leaf, which the
+    reference stacks into one leaf, else one."""
+    heads = getattr(params, "draft", None)
+    if heads is not None:
+        yield [(heads, "w")]
     for group in ("embed", "final_norm"):
         pdict = getattr(params, group)
         for name in sorted(pdict.keys()):
@@ -618,7 +655,9 @@ def _rebuild_weight_stream(params: LM, moved, streamed):
     def copy(block):
         return types.SimpleNamespace(**{part: dict(getattr(block, part))
                                         for part in _PARTS})
+    heads = getattr(params, "draft", None)
     out = types.SimpleNamespace(
+        draft=None if heads is None else dict(heads),
         embed=dict(params.embed), final_norm=dict(params.final_norm),
         unit=[[copy(b) for b in blocks] for blocks in params.unit],
         tail=[copy(b) for b in params.tail])

@@ -129,21 +129,52 @@ def test_engine_matches_reference_in_lockstep(fused, monkeypatch):
 
 
 def test_engine_refuses_paths_of_later_slices():
+    """The refusals that remain: the sharded pool (ROADMAP §1 item 8) and
+    the other families (item 7).  What item 4 brought — speculative decode
+    (and ``spec_heads``), aging, the bounded queue, fault injection and SLO
+    deadlines — now constructs and runs on the CPU."""
     tcfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
     from repro_torch.models import api
+    from repro_torch.runtime import FaultInjector
     params = api.init_params(tcfg, seed=0, device="cpu")
-    for kw, item in ((dict(spec_decode_k=2), 4), (dict(aging=3), 4),
-                     (dict(max_queue=4), 4), (dict(pool_shards=2), 8),
-                     (dict(fault_injector=object()), 4)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            ServingEngine(tcfg, params, max_slots=2, t_max=16, **kw)
-    eng = ServingEngine(tcfg, params, max_slots=2, t_max=16)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.submit(Request(0, np.zeros(3, np.int32), 2, deadline=4))
-    # the draft heads come with speculative decode
-    with pytest.raises(NotImplementedError, match="item 4"):
-        api.init_params(dataclasses.replace(tcfg, spec_heads=2), seed=0,
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ServingEngine(tcfg, params, max_slots=2, t_max=16, pool_shards=2)
+    ring_only = dataclasses.replace(tcfg, block_pattern=("L",),
+                                    sliding_window=8)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ServingEngine(ring_only, api.init_params(ring_only, device="cpu"),
+                      max_slots=2, t_max=16)
+    with pytest.raises(NotImplementedError, match="items 6, 7"):
+        api.init_params(dataclasses.replace(tcfg, family="ssm"),
                         device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tcfg.vocab_size, (n,), dtype=np.int32)
+               for n in (3, 6, 4)]
+    served = {}
+    for what, kw in (("plain", {}), ("spec", dict(spec_decode_k=2)),
+                     ("aging", dict(aging=3)), ("queue", dict(max_queue=4)),
+                     ("faults", dict(fault_injector=FaultInjector(
+                         fail_at=(1,), exhaust_pool_at=(2,)))),
+                     ("deadlines", {})):
+        eng = ServingEngine(tcfg, params, max_slots=2, t_max=16, **kw)
+        reqs = [Request(i, p, 4, deadline=12 if what == "deadlines" else None)
+                for i, p in enumerate(prompts)]
+        assert [eng.submit(r) for r in reqs] == ["queued"] * 3
+        eng.run_to_completion(max_steps=64)
+        served[what] = [r.generated for r in reqs]
+        assert all(len(g) == 4 for g in served[what]), what
+    assert all(v == served["plain"] for v in served.values()), served
+    assert eng.slo_misses == 0
+    heads = dataclasses.replace(tcfg, spec_heads=2)
+    hparams = api.init_params(heads, seed=0, device="cpu")
+    assert tuple(hparams.draft["w"].shape) == (2, tcfg.d_model, tcfg.d_model)
+    eng = ServingEngine(heads, hparams, max_slots=2, t_max=16,
+                        spec_decode_k=2)
+    assert eng.params is hparams
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, 4))
+    eng.run_to_completion(max_steps=64)
+    assert eng.spec_proposed > 0
 
 
 def test_entry_points_need_a_device_or_an_explicit_cpu(monkeypatch):
