@@ -33,7 +33,7 @@ Phases (any fault exits non-zero):
    and after one that only reads it, beside a contiguous ``copy_`` of the
    same bytes and a 64-byte ``zero_()``, the floor of this timing), and
    the host time per wrapper call of the layout engine (1000 calls) and of
-   the gather (100 calls at each engine's shape);
+   the gather and the scatter (100 calls at each engine's shape);
 4. interconnect — kernels 5-7 through their ``ops`` entry points
    (``interconnect_read``, ``rotate_groups``, ``matmul``) at the served
    models' full widths: the read network and the barrel rotator on
@@ -91,12 +91,24 @@ Phases (any fault exits non-zero):
    admission waves' and swap transfers'; prints each arm's steps, peak
    memory, swap transfers (wall time each, its parity share) and bytes;
    then kernels 1-2 at each swap stream's shape, held and timed;
-11. card vs CPU — the stablelm and gemma3 smoke configs in float32 agree
-   between the card and the CPU within 1e-4 (engine step; gemma3 one-shot);
-   the stablelm smoke through the reference's churn trace (swap,
-   recompute, swap with faults): tokens, ``SchedulerStats`` and the pool
-   state equal, cache bytes within 1e-4;
-12. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+11. moe — full-width granite-moe-3b-a800m (32 layers, 40 experts top-8,
+   ~6.6 GB of random bf16 weights from a seed), 4 requests of 448 tokens,
+   32 generated, through the engine: every MoE layer dispatches over the
+   scatter kernel and combines over the gather kernel in each decode step
+   and prefill (launches exact); the same tokens with the kernels off,
+   with ``payload="route"`` and on the crossbar fabric; the one-shot
+   generate of request 0 equal to a one-slot engine's; kernels 1-2 held
+   bit for bit at one decode step's (a capacity of 1, so sentinel rows)
+   and one prefill's dispatch and combine operands, and timed, with the
+   wrappers' host time per call (paths ``granite-moe-3b-a800m moe
+   decode`` / ``prefill``);
+12. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
+   float32 agree between the card and the CPU within 1e-4 (engine step;
+   gemma3 one-shot), granite-moe's tokens and every ``SchedulerStats``
+   field exactly; the stablelm smoke through the reference's churn trace
+   (swap, recompute, swap with faults): tokens, ``SchedulerStats`` and the
+   pool state equal, cache bytes within 1e-4;
+13. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
    bytes or by operations, at that path's shapes; a matmul's entry also
    names its route; the swap streams' entries are the paths ``swap:
@@ -183,6 +195,12 @@ ZERO_LAUNCHES = {name: 0 for name in KERNELS}
 PREEMPT_REQUESTS, PREEMPT_EVERY, PREEMPT_POOL = 8, 6, 20
 GEMMA_SWAP_REQUESTS, GEMMA_SWAP_GEN, GEMMA_SWAP_EVERY = 6, 32, 4
 GEMMA_SWAP_POOL, SPEC_K = 60, 3
+# the moe phase: granite-moe-3b-a800m's prompt and generated tokens (4
+# requests, one per slot), and the kernels line's paths of kernels 1-2 at
+# its MoE dispatch and combine shapes
+MOE_ARCH, MOE_PROMPT, MOE_GEN = "granite-moe-3b-a800m", 448, 32
+MOE_DECODE = "granite-moe-3b-a800m moe decode"
+MOE_PREFILL = "granite-moe-3b-a800m moe prefill"
 # the float32 churn of the card-vs-CPU phase (the reference's churn trace,
 # tests/test_preemption.py): arrival step, prompt, generated, priority
 CHURN_SPEC = ((0, 7, 8, 0), (0, 8, 8, 0), (2, 9, 6, 2), (3, 7, 6, 1),
@@ -566,8 +584,13 @@ def sparse_rows(torch, words, lines, idx, n: int, label: str) -> dict:
         plain_ms=time_ms(torch, lambda: mt.scatter_burst_plain(
             banked, idx, into_p, n)),
         library_ms=time_ms(torch, scatter_library),
+        host_us_per_call=host_us(torch, lambda: mt.scatter_burst_network_tiles(
+            banked, idx, into_k, n), calls=100),
         shape=f"banked {list(banked.shape)} int32, into "
               f"{list(into0.shape)}")
+    print(f"scatter ({label}): wrapper "
+          f"{rows['scatter_burst_network_tiles']['host_us_per_call']:.2f} "
+          f"host us per call", flush=True)
     del into0, into_k, into_p, banked, again
     return rows
 
@@ -1417,8 +1440,10 @@ def engine_run(torch, cfg, params, prompts, gen_len: int, label: str,
           f"{label}: non-finite logits")
     med = statistics.median(steps[1:])
     per_step = {k: v / decode_steps for k, v in counts.items() if v}
+    tok_s = sum(len(t) for t in toks) / sum(steps)
     print(f"{label}: median decode step {med * 1e3:.3f} ms over "
-          f"{decode_steps - 1} steps; admission step {steps[0] * 1e3:.1f} "
+          f"{decode_steps - 1} steps; {tok_s:.1f} tok/s incl. prefill; "
+          f"admission step {steps[0] * 1e3:.1f} "
           f"ms; launches per decode step {per_step}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
@@ -2062,6 +2087,190 @@ def preempt_phase(torch, dev, rows) -> None:
     torch.cuda.empty_cache()
 
 
+def moe_operands(torch, moe, ffn, cfg, x) -> dict:
+    """The operands one ``moe.moe_apply(ffn, x, cfg)`` hands the gather
+    (combine) and scatter (dispatch) kernels, as the scheduler passes them
+    to ``kernels.ops`` (bf16 pairs folded into int32 words), recorded by
+    wrapping the two ops entry points for the call."""
+    from repro_torch.kernels import ops
+
+    seen = {}
+    gather, scatter = ops.burst_gather_read, ops.burst_scatter_write
+
+    def gather_spy(lines, idx, n):
+        seen["gather"] = (lines.clone(), idx.clone(), n)
+        return gather(lines, idx, n)
+
+    def scatter_spy(banked, idx, into, n):
+        seen["scatter"] = (banked.clone(), idx.clone(), into.clone(), n)
+        return scatter(banked, idx, into, n)
+    ops.burst_gather_read, ops.burst_scatter_write = gather_spy, scatter_spy
+    try:
+        moe.moe_apply(ffn, x, cfg)
+    finally:
+        ops.burst_gather_read, ops.burst_scatter_write = gather, scatter
+    check(set(seen) == {"gather", "scatter"},
+          f"moe_apply did not reach both kernels: {sorted(seen)}")
+    return seen
+
+
+def moe_rows(torch, words, operands, label: str, drops: bool) -> dict:
+    """Kernels 1-2 at one MoE dispatch/combine: the recorded dispatch
+    (its real payload) and combine (its real expert outputs) held bit for
+    bit against the plain versions, the combine's sentinel frames read as
+    zeros; every index a slot in ``[0, E*C)`` or ``FRAME_SENTINEL``, and
+    the dispatch's indices the combine's; then :func:`sparse_rows` at the
+    same operands (held, launched again, timed).  ``drops``: the capacity
+    must drop (sentinel rows)."""
+    from repro_torch.fabric import FRAME_SENTINEL
+    from repro_torch.kernels import medusa_transpose as mt
+
+    lines, idx, n = operands["gather"]
+    banked, sidx, into0, _ = operands["scatter"]
+    rows_l = lines.shape[0]
+    check(torch.equal(idx, sidx) and into0.shape == lines.shape,
+          f"{label}: dispatch and combine index other slots")
+    live = idx[idx != FRAME_SENTINEL]
+    check(bool((idx >= 0).all()) and bool((live < rows_l).all())
+          and live.unique().numel() == live.numel(),
+          f"{label}: an index outside the slots, or a slot twice")
+    sentinels = int((idx == FRAME_SENTINEL).sum())
+    check(sentinels > 0 or not drops, f"{label}: no capacity drop")
+    got = mt.scatter_burst_network_tiles(banked, sidx, into0.clone(), n)
+    bit_equal(torch, got, mt.scatter_burst_plain(banked, sidx, into0.clone(),
+                                                 n), f"dispatch ({label})")
+    got = mt.gather_burst_network_tiles(lines, idx, n)
+    bit_equal(torch, got, mt.gather_burst_plain(lines, idx, n),
+              f"combine ({label})")
+    frames = got.transpose(1, 2).reshape(idx.numel(), n, -1)
+    check(not bool(frames[idx == FRAME_SENTINEL].any()),
+          f"{label}: a sentinel frame is not zeros")
+    print(f"{label}: {idx.numel()} assignment rows ({sentinels} sentinels) "
+          f"over {rows_l} expert slots of [N={n}, {lines.shape[2]}] int32 "
+          f"words; dispatch and combine bit-equal to their plain versions",
+          flush=True)
+    return sparse_rows(torch, words, lines, idx, n, label)
+
+
+def moe_phase(torch, dev, rows) -> None:
+    """granite-moe-3b-a800m at full width and depth (32 layers, d_model
+    1536, 40 experts top-8, 8 KV heads = N ports, ~6.6 GB of random bf16
+    weights from a seed): 4 requests of 448 tokens, 32 generated, through
+    the engine on the medusa fabric with the fused gather.  Each MoE layer
+    dispatches over the scatter kernel and combines over the gather kernel
+    in every decode step and every prefill, beside the KV bursts; the
+    launches must be exactly that.  The same tokens with the kernels off,
+    with ``payload="route"`` (no MoE burst) and on the crossbar fabric.
+    The one-shot ``greedy_generate`` of request 0 must serve the tokens of
+    a one-slot engine: capacity counts every row a step feeds, so only a
+    batch of the same rows (one prompt, one slot) routes the same (the
+    4-slot engine prefills each prompt alone, a batched one-shot all four
+    at once).  Then kernels 1-2 at one decode step's and one prefill's
+    dispatch and combine operands."""
+    import functools
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, moe
+
+    cfg, params = load_model(torch, dev, MOE_ARCH)
+    n_moe = cfg.n_layers
+    b, s, g = ENGINE_SLOTS, MOE_PROMPT, MOE_GEN
+    steps = g - 1
+    prompts = SyntheticLM(cfg, batch=b, seq=s, seed=0).batch_at(0)["tokens"]
+
+    def launches(slots, moe_on=True):
+        """Kernels 1-2 of an engine run: the K/V streams' gather and
+        scatter per decode step and scatter per admission wave, and one
+        dispatch scatter and combine gather per MoE layer per decode step
+        and per prefill."""
+        per = n_moe * (steps + slots) if moe_on else 0
+        return {"gather_burst_network_tiles": 2 * steps + per,
+                "scatter_burst_network_tiles": 2 * steps + 2 + per}
+
+    label = f"{MOE_ARCH} engine (fused gather)"
+    toks, med, counts, stats = engine_run(torch, cfg, params, prompts, g,
+                                          label, launches(b))
+    check(stats.tokens_dropped > 0, f"{label}: no assignment dropped at the "
+          f"decode's capacity of 1")
+    print(f"{label}: {stats.tokens_dropped} token assignments dropped at "
+          f"capacity over the decode steps; median step {med * 1e3:.3f} ms; "
+          f"{card_line()}", flush=True)
+    for path, per in ((MOE_DECODE, n_moe * steps), (MOE_PREFILL, n_moe * b)):
+        rows[path] = {name: {"launches": per} for name in (
+            "gather_burst_network_tiles", "scatter_burst_network_tiles")}
+
+    others = []
+    ops.use_kernels(False)
+    try:
+        others.append(("kernels off", engine_run(
+            torch, cfg, params, prompts, g, f"{MOE_ARCH} engine (kernels off)",
+            {})))
+    finally:
+        ops.use_kernels(True)
+    apply = moe.moe_apply
+    moe.moe_apply = functools.partial(apply, payload="route")
+    try:
+        others.append(("payload route", engine_run(
+            torch, cfg, params, prompts, g,
+            f"{MOE_ARCH} engine (payload route)", launches(b, False))))
+    finally:
+        moe.moe_apply = apply
+    others.append(("crossbar fabric", engine_run(
+        torch, dataclasses.replace(cfg, kv_layout="crossbar"), params,
+        prompts, g, f"{MOE_ARCH} engine (crossbar fabric)", {})))
+    for what, (other, _, _, ostats) in others:
+        check(other == toks, f"{MOE_ARCH}: the {what} engine served other "
+              f"tokens than the fused-gather engine")
+        check(ostats.tokens_dropped == stats.tokens_dropped,
+              f"{MOE_ARCH}: the {what} engine dropped "
+              f"{ostats.tokens_dropped}, not {stats.tokens_dropped}")
+
+    # the one-shot against a one-slot engine, request 0
+    one, _, _, _ = engine_run(torch, cfg, params, prompts[:1], g,
+                              f"{MOE_ARCH} engine (one slot)", launches(1))
+    mt.reset_launch_counts()
+    prompt = torch.as_tensor(prompts[:1], device=dev)
+    shot, logits, times = generate(torch, api, params, prompt, cfg, steps,
+                                   s + g)
+    counts = mt.launch_counts()
+    want = {**ZERO_LAUNCHES, "medusa_transpose_tiles": 2 * n_moe * steps,
+            "gather_burst_network_tiles": n_moe * (steps + 1),
+            "scatter_burst_network_tiles": n_moe * (steps + 1)}
+    check(counts == want, f"{MOE_ARCH} one-shot: launches {counts} != {want}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in logits),
+          f"{MOE_ARCH} one-shot: non-finite logits")
+    check(shot.tolist()[0] == one[0][1:], f"{MOE_ARCH}: the one-shot served "
+          f"other tokens than the one-slot engine")
+    print(f"{MOE_ARCH}: tokens equal across the fused-gather engine, kernels "
+          f"off, payload route and the crossbar fabric ({b} x {g}); the "
+          f"one-shot equal to the one-slot engine ({steps} decoded, median "
+          f"step {statistics.median(times) * 1e3:.3f} ms)", flush=True)
+    del logits
+
+    # kernels 1-2 at one decode step's and one prefill's MoE operands
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def words(shape):
+        info = torch.iinfo(torch.int32)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+    ffn = params.unit[0][0].ffn
+    for path, shape, drops in ((MOE_DECODE, (b, 1, cfg.d_model), True),
+                               (MOE_PREFILL, (1, s, cfg.d_model), False)):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        got = moe_rows(torch, words, moe_operands(torch, moe, ffn, cfg, x),
+                       path, drops)
+        for name, r in got.items():
+            rows[path][name].update(r)
+            set_bound(rows[path][name])
+            print_row(name, path, rows[path][name])
+    del params, ffn
+    free_model(torch, MOE_ARCH)
+
+
 def churn_card_vs_cpu(torch, dev) -> None:
     """The float32 stablelm smoke through the reference's churn trace
     (:data:`CHURN_SPEC`, a 7-page pool, 2 slots, page 4) on the card and on
@@ -2157,16 +2366,18 @@ def card_vs_cpu(torch, dev):
     from repro_torch.models import api
     from repro_torch.serving import Request, ServingEngine
 
-    for arch in ("stablelm-1.6b", "gemma3-4b"):
+    for arch in ("stablelm-1.6b", "gemma3-4b", MOE_ARCH):
         small = dataclasses.replace(get_smoke(arch), dtype="float32")
         p_cpu = api.init_params(small, seed=1, device="cpu")
         p_gpu = api.init_params(small, seed=1, device="cpu").to(dev)
         sp = SyntheticLM(small, batch=3, seq=10, seed=1).batch_at(0)["tokens"]
-        firsts, engs = {}, {}
+        firsts, engs, reqs = {}, {}, {}
         for name, p in (("cpu", p_cpu), ("gpu", p_gpu)):
             e = ServingEngine(small, p, max_slots=3, t_max=18)
-            for i in range(3):
-                e.submit(Request(i, sp[i], max_new_tokens=6))
+            reqs[name] = [Request(i, sp[i], max_new_tokens=6)
+                          for i in range(3)]
+            for r in reqs[name]:
+                e.submit(r)
             e.step()
             engs[name] = e
             if arch == "gemma3-4b":
@@ -2191,6 +2402,19 @@ def card_vs_cpu(torch, dev):
             e.run_to_completion()
         check(all(r is None for r in engs["gpu"].active),
               f"{arch} smoke not drained")
+        if arch == MOE_ARCH:
+            # MoE: routing decides the movement, so tokens and every
+            # counter (tokens_dropped included) must be exact
+            a, c = (dataclasses.asdict(engs[k].fabric_stats)
+                    for k in ("gpu", "cpu"))
+            check([r.generated for r in reqs["gpu"]]
+                  == [r.generated for r in reqs["cpu"]],
+                  f"{arch}: card and CPU tokens differ")
+            check(a == c, f"{arch}: card and CPU SchedulerStats differ: "
+                  f"{a} vs {c}")
+            print(f"smoke {arch} float32 engine card vs CPU: tokens and all "
+                  f"SchedulerStats fields equal ({a['tokens_dropped']} "
+                  f"assignments dropped)", flush=True)
     churn_card_vs_cpu(torch, dev)
 
 
@@ -2260,6 +2484,7 @@ def main() -> None:
     gemma3_12b_phase(torch, dev, rows)
     fsdp_phase(torch, dev, rows)
     preempt_phase(torch, dev, rows)
+    moe_phase(torch, dev, rows)
     card_vs_cpu(torch, dev)
 
     # one entry per kernel and path: its launches on that path's runs, its

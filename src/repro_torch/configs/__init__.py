@@ -1,6 +1,7 @@
-from repro_torch.configs.base import FabricConfig, ModelConfig, PortSpec
+from repro_torch.configs.base import (FabricConfig, ModelConfig, MoEConfig,
+                                      PortSpec)
 from repro_torch.configs.registry import (ARCHS, get_config, get_fabric,
                                           get_smoke)
 
-__all__ = ["FabricConfig", "ModelConfig", "PortSpec", "ARCHS", "get_config",
-           "get_fabric", "get_smoke"]
+__all__ = ["FabricConfig", "ModelConfig", "MoEConfig", "PortSpec", "ARCHS",
+           "get_config", "get_fabric", "get_smoke"]

@@ -107,10 +107,30 @@ class FabricConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """A mixture-of-experts FFN: ``n_experts`` experts of width
+    ``expert_d_ff``, top-``top_k`` routing with a static per-expert
+    capacity of ``capacity_factor`` times the even share.  ``dispatch``
+    names the reference's multi-device all-to-all schedule (``"xla"`` or
+    the ``"medusa"`` ring); on one card it changes nothing.  ``pad_to``
+    pads the expert axis with dead experts the router never selects."""
+    n_experts: int
+    top_k: int
+    expert_d_ff: int
+    capacity_factor: float = 1.25
+    dispatch: str = "xla"
+    pad_to: int = 0
+
+    @property
+    def n_experts_padded(self) -> int:
+        return max(self.pad_to, self.n_experts)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One architecture.  The sub-family configs of the reference (MoE,
-    SSM, RG-LRU) come with their slices; the fields this slice's dense
-    decoder reads are the reference's, with the same defaults."""
+    """One architecture.  The SSM and RG-LRU sub-family configs of the
+    reference come with their slices; the fields the ported decoder reads
+    are the reference's, with the same defaults."""
     name: str
     family: str                   # dense | ssm | hybrid | moe | audio | vlm
     n_layers: int
@@ -127,7 +147,7 @@ class ModelConfig:
     norm: str = "rms"             # rms | ln
     mlp: str = "swiglu"           # swiglu | geglu | gelu
     tie_embeddings: bool = True
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[object] = None
     rglru: Optional[object] = None
     encoder_layers: int = 0
@@ -179,17 +199,31 @@ class ModelConfig:
         mult = 3 if self.mlp in ("swiglu", "geglu") else 2
         return mult * self.d_model * d_ff
 
+    def _ffn_params(self) -> int:
+        if self.moe is None:
+            return self._mlp_params(self.d_ff)
+        return (self.moe.n_experts * self._mlp_params(self.moe.expert_d_ff)
+                + self.d_model * self.moe.n_experts)
+
     def param_count(self) -> int:
         """Total parameter count (embeddings included once if tied) for the
-        attention-only families this slice ports."""
-        if self.moe is not None or self.encoder_layers or any(
-                t not in ("A", "L") for t in self.layer_types()):
+        attention-only families the port serves (dense and MoE)."""
+        if self.encoder_layers or any(t not in ("A", "L")
+                                      for t in self.layer_types()):
             raise NotImplementedError(
-                "param_count covers attention-only dense configs in this "
-                "slice (ROADMAP §1: other families)")
+                "param_count covers attention-only configs (ROADMAP §1 "
+                "item 7: other families)")
         total = self.vocab_size * self.d_model * (
             1 if self.tie_embeddings else 2)
         for _ in self.layer_types():
-            total += (self._attn_params() + self._mlp_params(self.d_ff)
+            total += (self._attn_params() + self._ffn_params()
                       + 2 * self.d_model)
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: the top-k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        idle = (self.moe.n_experts - self.moe.top_k) * self._mlp_params(
+            self.moe.expert_d_ff)
+        return self.param_count() - idle * len(self.layer_types())

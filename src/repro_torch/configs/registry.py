@@ -13,7 +13,15 @@ ARCHS = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
 }
+
+
+# served at the smoke config only: about 1 T parameters (2 TB in bf16) fit
+# no single 80 GB card; the full config is there for --arch and
+# param_count
+SMOKE_ONLY = frozenset({"kimi-k2-1t-a32b"})
 
 
 def get_config(arch: str) -> ModelConfig:

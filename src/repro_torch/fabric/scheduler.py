@@ -56,9 +56,12 @@ class SchedulerStats:
     installed through one write burst, and ``words_padded`` the zero fill
     of the ``pack="pad"`` layout.  The engine adds its preemption, swap,
     fault-recovery and admission-control counters (``preemptions`` ...
-    ``aging_promotions``); ``words_cross_shard``, ``collective_calls`` and
-    ``tokens_dropped`` belong to paths ported in later slices (the sharded
-    pool, MoE) and stay zero here."""
+    ``aging_promotions``).  ``tokens_dropped`` counts the token→expert
+    assignments the MoE dispatch dropped at capacity (their scatter
+    indices became sentinels), per executed dispatch
+    (:func:`repro_torch.models.moe.dispatch_stats`);
+    ``words_cross_shard`` and ``collective_calls`` belong to the sharded
+    pool, ported in a later slice, and stay zero here."""
     streams_served: int = 0
     flushes: int = 0
     network_calls: int = 0

@@ -35,8 +35,14 @@ anti-starvation aging, ``--max-queue`` bounds the submit queue, and
 ``--spec-decode-k`` turns on Medusa-heads speculative decode (the same
 token stream, with the acceptance census).
 
-Prints throughput, the fabric census, the preemption, admission and
-speculative-decode censuses (engine) and the kernel launch counts.
+MoE models (``--arch granite-moe-3b-a800m``, ``--arch kimi-k2-1t-a32b``
+at ``--smoke`` only) dispatch and combine each MoE layer's tokens over the
+sparse bursts: one scatter and one gather kernel launch per layer per
+step and per prefill on the card.
+
+Prints throughput, the fabric census, the preemption, admission,
+MoE-dispatch and speculative-decode censuses (engine) and the kernel
+launch counts.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs.registry import SMOKE_ONLY
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels import medusa_transpose as mt
 from repro_torch.models import api
@@ -132,6 +139,9 @@ def main(argv=None):
                          "engine accepts its longest prefix matching the "
                          "committed argmax (the token stream of k=0)")
     args = ap.parse_args(argv)
+    if args.arch in SMOKE_ONLY and not args.smoke:
+        ap.error(f"--arch {args.arch} is served at --smoke only: its full "
+                 f"config fits no single card")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # float32 products in full precision, as the reference
@@ -249,6 +259,10 @@ def main(argv=None):
     else:
         print("fused gather: off — the step banks the whole pool (gathering "
               "after the burst) or the dense per-slot caches")
+    if cfg.moe is not None:
+        print(f"moe dispatch: {fs.tokens_dropped} token assignments "
+              f"dropped at capacity over the whole run (sentinel rows in the "
+              f"dispatch scatter; residual passed through)")
     if eng.spec_k:
         print(f"speculative decode[k={eng.spec_k}]: {eng.spec_accepted}/"
               f"{eng.spec_proposed} draft tokens accepted "

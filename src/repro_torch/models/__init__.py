@@ -1,4 +1,5 @@
-"""Models of the port: the dense decoder-only LM on the serving path."""
+"""Models of the port: the decoder-only LM (dense or MoE) on the serving
+path."""
 
 from repro_torch.models.api import (decode_fn, init_cache, init_params,
                                     prefill_fn)

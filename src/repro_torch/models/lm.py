@@ -1,8 +1,10 @@
 """Decoder-only LM (port of ``repro.models.lm`` for full-attention ``A``
-and sliding-window ``L`` blocks): parameters, caches, prefill, the
-per-layer decode step (over dense caches or, gathered, over the page pool),
-the burst-scheduled decode step (with ``serve_fsdp`` weight
-streaming), and the Medusa draft heads any decode step can append.
+and sliding-window ``L`` blocks, each with a dense MLP or, when
+``cfg.moe`` is set, the MoE FFN of :mod:`repro_torch.models.moe`):
+parameters, caches, prefill, the per-layer decode step (over dense caches
+or, gathered, over the page pool), the burst-scheduled decode step (with
+``serve_fsdp`` weight streaming), and the Medusa draft heads any decode
+step can append.
 
 Parameters are an :class:`LM` module: one :class:`Block` per layer
 (``LM.unit[i][r]`` is pattern position ``i`` of repetition ``r``, the
@@ -31,10 +33,11 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import moe
 
-_OTHER_FAMILIES = ("block types other than attention ('A', 'L'), MoE and "
-                   "the other families are ported in later slices (ROADMAP "
-                   "§1 items 6, 7)")
+_OTHER_FAMILIES = ("block types other than attention ('A', 'L') and the "
+                   "other families are ported in later slices (ROADMAP §1 "
+                   "item 7)")
 
 
 def pattern_unit(cfg: ModelConfig):
@@ -45,8 +48,8 @@ def pattern_unit(cfg: ModelConfig):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None or cfg.family in ("audio", "ssm", "hybrid") \
-            or cfg.n_patches or cfg.encoder_layers \
+    if cfg.family in ("audio", "ssm", "hybrid") or cfg.n_patches \
+            or cfg.encoder_layers \
             or any(t not in ("A", "L") for t in cfg.layer_types()):
         raise NotImplementedError(_OTHER_FAMILIES)
 
@@ -71,7 +74,8 @@ def _norm(cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One attention decoder layer (``A`` or ``L``; the two have the same
-    parameters): pre-norm attention + MLP."""
+    parameters): pre-norm attention + MLP, or + the MoE FFN when
+    ``cfg.moe`` is set (its router in float32 whatever the model dtype)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -82,6 +86,14 @@ class Block(nn.Module):
                              "wv": (d, cfg.n_kv_heads * hd),
                              "wo": (cfg.n_heads * hd, d)}, dtype, device)
         self.norm2 = _norm(cfg, dtype, device)
+        if cfg.moe is not None:
+            self.ffn = nn.ParameterDict({
+                name: nn.Parameter(torch.empty(shape, dtype=dt,
+                                               device=device),
+                                   requires_grad=False)
+                for name, (shape, dt) in moe.moe_param_shapes(
+                    cfg, dtype).items()})
+            return
         ffn = {"w_up": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
         if cfg.mlp in ("swiglu", "geglu"):
             ffn["w_gate"] = (d, cfg.d_ff)
@@ -269,6 +281,8 @@ def _block_apply(t: str, bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
                                        layer_kind=t, kv_chunk=kv_chunk)
     x = x + h
     h = cm.apply_norm(x, bp.norm2, cfg.norm)
+    if cfg.moe is not None:
+        return x + moe.moe_apply(bp.ffn, h, cfg), new_kv
     return x + cm.mlp_apply(bp.ffn, h, cfg.mlp), new_kv
 
 
@@ -608,7 +622,9 @@ def _weight_slots(params):
     ``final_norm``, ``tail``, ``unit``; lists in order), each as its
     ``(dict, name)`` slots in ``params`` (an :class:`LM`, or the step's
     copy of one): one slot per repetition for a ``unit`` leaf, which the
-    reference stacks into one leaf, else one."""
+    reference stacks into one leaf, else one.  A MoE block's ``ffn``
+    leaves come as ``router``, ``w_gate``, ``w_out``, ``w_up``; the
+    float32 router of a bf16 model streams in its own dtype group."""
     heads = getattr(params, "draft", None)
     if heads is not None:
         yield [(heads, "w")]

@@ -77,6 +77,7 @@ from repro_torch.fabric import (BurstScheduler, Fabric, PagedKVCache,
 from repro_torch.models import api
 from repro_torch.models import common as cm
 from repro_torch.models import lm
+from repro_torch.models import moe
 
 _LATER = "is ported in a later slice (ROADMAP §1 item {})"
 # the seed of the draft heads an engine draws when its params have none
@@ -232,11 +233,17 @@ class ServingEngine:
         self.fabric_stats = SchedulerStats()
 
     def _decode(self, tokens, caches, pos, page_table, live_plan):
+        """One decode step.  The MoE dispatch accounting (its bursts and
+        ``tokens_dropped``) goes to ``fabric_stats`` for the decode step
+        only; admission's prefill runs outside the sink, as the
+        reference's does."""
         sched = BurstScheduler(self.fabric, stats=self.fabric_stats)
-        return api.decode_fn(self.params, tokens, caches, pos, self.cfg,
-                             sched=sched, page_table=page_table,
-                             page_size=self.page_size, t_depth=self.t_alloc,
-                             live_plan=live_plan, draft=self._model_draft)
+        with moe.dispatch_stats(self.fabric_stats):
+            return api.decode_fn(self.params, tokens, caches, pos, self.cfg,
+                                 sched=sched, page_table=page_table,
+                                 page_size=self.page_size,
+                                 t_depth=self.t_alloc, live_plan=live_plan,
+                                 draft=self._model_draft)
 
     # -- admission -----------------------------------------------------------
     def submit(self, req: Request) -> str:

@@ -130,9 +130,10 @@ def test_engine_matches_reference_in_lockstep(fused, monkeypatch):
 
 def test_engine_refuses_paths_of_later_slices():
     """The refusals that remain: the sharded pool (ROADMAP §1 item 8) and
-    the other families (item 7).  What item 4 brought — speculative decode
-    (and ``spec_heads``), aging, the bounded queue, fault injection and SLO
-    deadlines — now constructs and runs on the CPU."""
+    the other families (item 7).  What items 4 and 6 brought — speculative
+    decode (and ``spec_heads``), aging, the bounded queue, fault injection,
+    SLO deadlines and the MoE family — now constructs and runs on the
+    CPU."""
     tcfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
     from repro_torch.models import api
     from repro_torch.runtime import FaultInjector
@@ -144,9 +145,12 @@ def test_engine_refuses_paths_of_later_slices():
     with pytest.raises(NotImplementedError, match="item 7"):
         ServingEngine(ring_only, api.init_params(ring_only, device="cpu"),
                       max_slots=2, t_max=16)
-    with pytest.raises(NotImplementedError, match="items 6, 7"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         api.init_params(dataclasses.replace(tcfg, family="ssm"),
                         device="cpu")
+    granite = get_smoke("granite-moe-3b-a800m")
+    assert ServingEngine(granite, api.init_params(granite, device="cpu"),
+                         max_slots=2, t_max=16).kv.paged
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, tcfg.vocab_size, (n,), dtype=np.int32)
                for n in (3, 6, 4)]
