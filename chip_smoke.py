@@ -89,8 +89,10 @@ Phases (any fault exits non-zero):
    every swap-in must put the record's frames (and ring rows) back bit for
    bit, the launches of kernels 1-2 must be exactly the decode steps',
    admission waves' and swap transfers'; prints each arm's steps, peak
-   memory, swap transfers (wall time each, its parity share) and bytes;
-   then kernels 1-2 at each swap stream's shape, held and timed;
+   memory, swap transfers (wall time each, its parity share) and bytes,
+   and each parked request's time to resume (steps and wall time from its
+   preemption to its re-admission); then kernels 1-2 at each swap
+   stream's shape, held and timed;
 11. moe — full-width granite-moe-3b-a800m (32 layers, 40 experts top-8,
    ~6.6 GB of random bf16 weights from a seed), 4 requests of 448 tokens,
    32 generated, through the engine: every MoE layer dispatches over the
@@ -102,18 +104,33 @@ Phases (any fault exits non-zero):
    and one prefill's dispatch and combine operands, and timed, with the
    wrappers' host time per call (paths ``granite-moe-3b-a800m moe
    decode`` / ``prefill``);
-12. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
+12. loadgen — the traffic harness at full width: a seeded trace (16
+   requests, diurnal arrivals with bursts, lognormal prompts of 16-448 and
+   generations of 4-64 tokens, three priority classes, a quarter with SLO
+   deadlines) replayed through stablelm-1.6b by ``repro_torch.launch.
+   loadgen`` on an oversubscribed engine (4 slots, pages of 64, a 20-page
+   pool, swap preemption, aging 8, a queue of 12), with kernels 1-2's
+   launches exactly what the engine's counters imply; the steady step,
+   tok/s, per-class TTFT, queue wait and TPOT, goodput and the shed, SLO
+   and preemption census; the trace loaded back from the CLI's
+   ``--trace-out`` under a seeded fault soak (token-exact, zero page leaks,
+   its fault-free report equal to the CLI's record); a fleet of two
+   replicas behind the router (every request served or shed); kernels 1-2
+   held and timed at one decode step's operands (path ``loadgen:
+   stablelm-1.6b``); then the paper's burst simulator on the card, one
+   line in the constant N cycles, its pop bit-equal to the CPU's;
+13. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
    float32 agree between the card and the CPU within 1e-4 (engine step;
    gemma3 one-shot), granite-moe's tokens and every ``SchedulerStats``
    field exactly; the stablelm smoke through the reference's churn trace
    (swap, recompute, swap with faults): tokens, ``SchedulerStats`` and the
    pool state equal, cache bytes within 1e-4;
-13. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+14. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
    bytes or by operations, at that path's shapes; a matmul's entry also
    names its route; the swap streams' entries are the paths ``swap:
-   <arch>``), the card line again, and the ``{"ok": true, ...}`` line
-   last.
+   <arch>``, the traffic harness's ``loadgen: stablelm-1.6b``), the card
+   line again, and the ``{"ok": true, ...}`` line last.
 
 ``--profile`` adds ``torch.profiler`` censuses (after the launch counts
 are read) of the stablelm engine's fused decode steps and of gemma3-4b's
@@ -125,6 +142,7 @@ kernel, printed and written in full to ``chiprun_out/profile_*.txt``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -201,6 +219,22 @@ GEMMA_SWAP_POOL, SPEC_K = 60, 3
 MOE_ARCH, MOE_PROMPT, MOE_GEN = "granite-moe-3b-a800m", 448, 32
 MOE_DECODE = "granite-moe-3b-a800m moe decode"
 MOE_PREFILL = "granite-moe-3b-a800m moe prefill"
+# the loadgen phase: a seeded trace (the TrafficConfig below, at
+# stablelm-1.6b's vocab) replayed through stablelm-1.6b by the loadgen CLI
+# on an oversubscribed engine (a 20-page pool against a dense reservation
+# of 36), then under a seeded fault soak at the reference soak test's
+# rates, then through a fleet of two replicas of 2 slots and 10 pages
+LOADGEN_ARCH = "stablelm-1.6b"
+LOADGEN = f"loadgen: {LOADGEN_ARCH}"
+LOADGEN_TRACE = dict(seed=0, n_requests=16, arrival="diurnal", rate=0.5,
+                     diurnal_period=32, prompt_mean=256, prompt_sigma=0.6,
+                     prompt_min=16, prompt_max=448, gen_mean=32,
+                     gen_sigma=0.7, gen_min=4, gen_max=64, classes=3,
+                     deadline_frac=0.25, deadline_slack=3.0)
+LOADGEN_ENGINE = dict(max_slots=4, page_size=64, pool_pages=20,
+                      preempt="swap", aging=8, max_queue=12)
+LOADGEN_SOAK = dict(p_fail=0.05, p_exhaust=0.1, n_corrupt=1)
+LOADGEN_REPLICAS, LOADGEN_REPLICA = 2, dict(max_slots=2, pool_pages=10)
 # the float32 churn of the card-vs-CPU phase (the reference's churn trace,
 # tests/test_preemption.py): arrival step, prompt, generated, priority
 CHURN_SPEC = ((0, 7, 8, 0), (0, 8, 8, 0), (2, 9, 6, 2), (3, 7, 6, 1),
@@ -570,7 +604,8 @@ def sparse_rows(torch, words, lines, idx, n: int, label: str) -> dict:
     bit_equal(torch, again, into_k, f"scatter ({label}) applied twice")
     live = idx[(idx >= 0) & (idx < into0.shape[0])]
     check(live.unique().numel() == live.numel(), "scatter rows not unique")
-    nbytes = g * n * n * w * 4 + k * 4 + live.numel() * n * w * 4
+    # a sentinel frame is neither read from ``banked`` nor written
+    nbytes = 2 * live.numel() * n * w * 4 + k * 4
     lib_keep = ((idx >= 0) & (idx < into0.shape[0])).nonzero().view(-1)
 
     def scatter_library():
@@ -1792,43 +1827,37 @@ def serve_arrivals(torch, cfg, params, prompts, gen_len: int, every: int,
     eng = ServingEngine(cfg, params, max_slots=ENGINE_SLOTS,
                         t_max=prompts.shape[1] + gen_len, check_pool=True,
                         **engine_kw)
-    probe = SwapProbe(torch, eng)
+    probe = EngineProbe(torch, eng)
     reqs = [Request(i, prompts[i], max_new_tokens=gen_len, priority=i % 3)
             for i in range(len(prompts))]
-    decodes, margin = [0], {}
-    decode = eng._decode
+    margin = {}
+    if margins:
+        decode = eng._decode
 
-    def counted(*args):
-        decodes[0] += 1
-        logits, caches = decode(*args)
-        if margins:
+        def recording(*args):
+            logits, caches = decode(*args)
             top2 = logits[:, 0].float().topk(2, dim=-1).values
             gap = (top2[:, 0] - top2[:, 1]).tolist()
             for s, r in enumerate(eng.active):
                 if r is not None:
                     margin[(r.rid, len(r.generated))] = gap[s]
-        return logits, caches
-    eng._decode = counted
+            return logits, caches
+        eng._decode = recording
     pend = list(range(len(reqs)))
-    steps, steady, preempting, queued_at, swaps = [], [], [], [], {}
+    preempting, queued_at, swaps = [], [], {}
     mt.reset_launch_counts()
     while pend or not eng.drained:
         while pend and pend[0] * every <= eng.step_count:
             eng.submit(reqs[pend.pop(0)])
         if eng.queue:
             queued_at.append(eng.step_count)
-        st, kv = eng.fabric_stats, eng.kv
-        before = st.preemptions, st.swap_bursts, kv.prefill_bursts
-        t0 = time.perf_counter()
+        st = eng.fabric_stats
+        before = st.preemptions, st.swap_bursts
         eng.step()
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
         if st.preemptions > before[0]:
             preempting.append(eng.step_count - 1)
         if st.swap_bursts > before[1]:
             swaps[eng.step_count - 1] = st.swap_bursts - before[1]
-        if (st.preemptions, st.swap_bursts, kv.prefill_bursts) == before:
-            steady.append(steps[-1])
         check(eng.step_count < 100 * gen_len, f"{label}: did not drain")
     counts = mt.launch_counts()
     check(all(len(r.generated) == gen_len for r in reqs),
@@ -1840,8 +1869,9 @@ def serve_arrivals(torch, cfg, params, prompts, gen_len: int, every: int,
     check(eng.kv.pool.pages_in_use == 0 and not eng._swapped
           and eng._swap_pages_used == 0,
           f"{label}: pages or swap space left at the end")
+    steps, steady = probe.steps, probe.steady
     out = dict(toks=[r.generated for r in reqs], steps=steps, eng=eng,
-               probe=probe, counts=counts, decodes=decodes[0],
+               probe=probe.swap, counts=counts, decodes=probe.decodes,
                preempting=preempting, queued_at=queued_at, margin=margin,
                swaps=swaps,
                steady=statistics.median(steady) if steady else float("nan"),
@@ -1857,24 +1887,37 @@ def serve_arrivals(torch, cfg, params, prompts, gen_len: int, every: int,
           f"bursts ({fs.swap_out_words} words out, {fs.swap_in_words} in), "
           f"{fs.bursts_retried} retried, {fs.faults_recovered} faults "
           f"recovered; launches {counts}", flush=True)
-    print(f"{label}: {probe.line()}", flush=True)
+    print(f"{label}: {probe.swap.line()}; {resume_line(probe.resumed)}",
+          flush=True)
     return out
 
 
+def burst_launches(runs) -> dict:
+    """Kernels 1-2's launches that engines' counters imply, summed over
+    ``runs`` of ``(engine, swap probe, decode calls)``: per decode one
+    gather and one scatter per K/V pool stream, one scatter per stream per
+    admission wave, and one gather (scatter) per stream per swap-out
+    (swap-in) attempt."""
+    gather, scatter = 0, 0
+    for eng, probe, decodes in runs:
+        e = 2 * len(eng.kv.paged_entries)
+        gather += e * (decodes + probe.out_attempts)
+        scatter += e * (decodes + eng.kv.prefill_bursts + probe.in_attempts)
+    return {**ZERO_LAUNCHES, "gather_burst_network_tiles": gather,
+            "scatter_burst_network_tiles": scatter}
+
+
+def check_counts(counts: dict, runs, label: str) -> None:
+    """Kernels 1-2's launches over ``runs`` are exactly what their
+    engines' counters imply (:func:`burst_launches`)."""
+    want = burst_launches(runs)
+    check(counts == want, f"{label}: launches {counts} != {want}")
+
+
 def check_launches(run: dict, label: str) -> None:
-    """The fused engine's launches, exactly: per decode step one gather and
-    one scatter per K/V pool stream, one scatter per stream per admission
-    wave, and one gather (scatter) per stream per swap-out (swap-in)
-    attempt."""
-    eng, probe = run["eng"], run["probe"]
-    e = 2 * len(eng.kv.paged_entries)
-    want = {**ZERO_LAUNCHES,
-            "gather_burst_network_tiles": e * (run["decodes"]
-                                               + probe.out_attempts),
-            "scatter_burst_network_tiles": e * (run["decodes"]
-                                                + eng.kv.prefill_bursts
-                                                + probe.in_attempts)}
-    check(run["counts"] == want, f"{label}: launches {run['counts']} != {want}")
+    """:func:`check_counts` of one :func:`serve_arrivals` run."""
+    check_counts(run["counts"], [(run["eng"], run["probe"], run["decodes"])],
+                 label)
 
 
 def swap_stream(torch, words, cfg, pool_pages: int, reach: int, gen):
@@ -2087,41 +2130,53 @@ def preempt_phase(torch, dev, rows) -> None:
     torch.cuda.empty_cache()
 
 
-def moe_operands(torch, moe, ffn, cfg, x) -> dict:
-    """The operands one ``moe.moe_apply(ffn, x, cfg)`` hands the gather
-    (combine) and scatter (dispatch) kernels, as the scheduler passes them
-    to ``kernels.ops`` (bf16 pairs folded into int32 words), recorded by
-    wrapping the two ops entry points for the call."""
+@contextlib.contextmanager
+def burst_operands(seen: dict):
+    """While open, record into ``seen`` (cloned) the operands of the first
+    gather and the first scatter that reach kernels 1-2 through
+    ``kernels.ops``, as the scheduler passes them (bf16 pairs folded into
+    int32 words)."""
     from repro_torch.kernels import ops
 
-    seen = {}
     gather, scatter = ops.burst_gather_read, ops.burst_scatter_write
 
     def gather_spy(lines, idx, n):
-        seen["gather"] = (lines.clone(), idx.clone(), n)
+        if "gather" not in seen:
+            seen["gather"] = (lines.clone(), idx.clone(), n)
         return gather(lines, idx, n)
 
     def scatter_spy(banked, idx, into, n):
-        seen["scatter"] = (banked.clone(), idx.clone(), into.clone(), n)
+        if "scatter" not in seen:
+            seen["scatter"] = (banked.clone(), idx.clone(), into.clone(), n)
         return scatter(banked, idx, into, n)
     ops.burst_gather_read, ops.burst_scatter_write = gather_spy, scatter_spy
     try:
-        moe.moe_apply(ffn, x, cfg)
+        yield seen
     finally:
         ops.burst_gather_read, ops.burst_scatter_write = gather, scatter
+
+
+def moe_operands(torch, moe, ffn, cfg, x) -> dict:
+    """The operands one ``moe.moe_apply(ffn, x, cfg)`` hands the gather
+    (combine) and scatter (dispatch) kernels."""
+    with burst_operands({}) as seen:
+        moe.moe_apply(ffn, x, cfg)
     check(set(seen) == {"gather", "scatter"},
           f"moe_apply did not reach both kernels: {sorted(seen)}")
     return seen
 
 
-def moe_rows(torch, words, operands, label: str, drops: bool) -> dict:
-    """Kernels 1-2 at one MoE dispatch/combine: the recorded dispatch
-    (its real payload) and combine (its real expert outputs) held bit for
-    bit against the plain versions, the combine's sentinel frames read as
-    zeros; every index a slot in ``[0, E*C)`` or ``FRAME_SENTINEL``, and
-    the dispatch's indices the combine's; then :func:`sparse_rows` at the
-    same operands (held, launched again, timed).  ``drops``: the capacity
-    must drop (sentinel rows)."""
+def burst_step_rows(torch, words, operands, label: str, drops: bool,
+                    rows_what: str = "assignment rows",
+                    slots_what: str = "expert slots") -> dict:
+    """Kernels 1-2 at one step's recorded operands (:func:`burst_operands`):
+    the scatter (an MoE dispatch with its real payload, or a decode's KV
+    write-back) and the gather (a combine of the real expert outputs, or a
+    decode's KV read) held bit for bit against the plain versions, the
+    gather's sentinel frames read as zeros; every index a row in ``[0, L)``
+    or ``FRAME_SENTINEL``, unique, and the scatter's indices the gather's;
+    then :func:`sparse_rows` at the same operands (held, launched again,
+    timed).  ``drops``: there must be sentinel rows."""
     from repro_torch.fabric import FRAME_SENTINEL
     from repro_torch.kernels import medusa_transpose as mt
 
@@ -2129,25 +2184,25 @@ def moe_rows(torch, words, operands, label: str, drops: bool) -> dict:
     banked, sidx, into0, _ = operands["scatter"]
     rows_l = lines.shape[0]
     check(torch.equal(idx, sidx) and into0.shape == lines.shape,
-          f"{label}: dispatch and combine index other slots")
+          f"{label}: the scatter and the gather index other rows")
     live = idx[idx != FRAME_SENTINEL]
     check(bool((idx >= 0).all()) and bool((live < rows_l).all())
           and live.unique().numel() == live.numel(),
-          f"{label}: an index outside the slots, or a slot twice")
+          f"{label}: an index outside the rows, or a row twice")
     sentinels = int((idx == FRAME_SENTINEL).sum())
-    check(sentinels > 0 or not drops, f"{label}: no capacity drop")
+    check(sentinels > 0 or not drops, f"{label}: no sentinel row")
     got = mt.scatter_burst_network_tiles(banked, sidx, into0.clone(), n)
     bit_equal(torch, got, mt.scatter_burst_plain(banked, sidx, into0.clone(),
-                                                 n), f"dispatch ({label})")
+                                                 n), f"scatter ({label})")
     got = mt.gather_burst_network_tiles(lines, idx, n)
     bit_equal(torch, got, mt.gather_burst_plain(lines, idx, n),
-              f"combine ({label})")
+              f"gather ({label})")
     frames = got.transpose(1, 2).reshape(idx.numel(), n, -1)
     check(not bool(frames[idx == FRAME_SENTINEL].any()),
           f"{label}: a sentinel frame is not zeros")
-    print(f"{label}: {idx.numel()} assignment rows ({sentinels} sentinels) "
-          f"over {rows_l} expert slots of [N={n}, {lines.shape[2]}] int32 "
-          f"words; dispatch and combine bit-equal to their plain versions",
+    print(f"{label}: {idx.numel()} {rows_what} ({sentinels} sentinels) "
+          f"over {rows_l} {slots_what} of [N={n}, {lines.shape[2]}] int32 "
+          f"words; scatter and gather bit-equal to their plain versions",
           flush=True)
     return sparse_rows(torch, words, lines, idx, n, label)
 
@@ -2261,14 +2316,357 @@ def moe_phase(torch, dev, rows) -> None:
     for path, shape, drops in ((MOE_DECODE, (b, 1, cfg.d_model), True),
                                (MOE_PREFILL, (1, s, cfg.d_model), False)):
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        got = moe_rows(torch, words, moe_operands(torch, moe, ffn, cfg, x),
-                       path, drops)
+        got = burst_step_rows(torch, words,
+                              moe_operands(torch, moe, ffn, cfg, x), path,
+                              drops)
         for name, r in got.items():
             rows[path][name].update(r)
             set_bound(rows[path][name])
             print_row(name, path, rows[path][name])
     del params, ffn
     free_model(torch, MOE_ARCH)
+
+
+def track_resumes(eng) -> list:
+    """Wrap ``eng``'s preemption and installation: for each parked request
+    that is admitted again, the returned list gains ``(steps, seconds,
+    swapped)`` — the steps and host seconds from the end of its preemption
+    to the end of its re-admission, and whether it came back by swap-in
+    (else by recompute)."""
+    parked, resumed = {}, []
+    preempt, install = eng._preempt_slot, eng._install
+
+    def parking(slot):
+        rid = eng.active[slot].rid
+        preempt(slot)
+        parked[rid] = (eng.step_count, time.perf_counter())
+
+    def installing(cand, slot, wave):
+        install(cand, slot, wave)
+        # a parked request (a replayed step installs it again)
+        when = (parked.pop(cand.req.rid, None) if hasattr(cand, "record")
+                else None)
+        if when is not None:
+            resumed.append((eng.step_count - when[0],
+                            time.perf_counter() - when[1],
+                            cand.record is not None))
+    eng._preempt_slot, eng._install = parking, installing
+    return resumed
+
+
+def resume_line(resumed: list) -> str:
+    """The time to resume of :func:`track_resumes`' requests."""
+    if not resumed:
+        return "no request parked"
+    steps = [r[0] for r in resumed]
+    ms = [r[1] * 1e3 for r in resumed]
+    swapped = sum(r[2] for r in resumed)
+    return (f"{len(resumed)} parked requests resumed ({swapped} by "
+            f"swap-in); time to resume median "
+            f"{statistics.median(steps)} steps ({min(steps)}-{max(steps)}), "
+            f"{statistics.median(ms):.3f} ms ({min(ms):.3f}-{max(ms):.3f})")
+
+
+class EngineProbe:
+    """Instruments one engine: its decode calls and the live slots at each
+    (at decode number ``arm``, the operands of kernels 1-2 go into
+    ``operands``, :func:`burst_operands`); each step's wall time, ending in
+    a synchronize, and whether it was steady (it decoded, with no
+    admission, no preemption and no swap); its swap transfers
+    (:class:`SwapProbe`); and each parked request's time to resume — the
+    steps and wall time from the end of its preemption to the end of its
+    re-admission."""
+
+    def __init__(self, torch, eng, arm=None, operands=None):
+        self.eng = eng
+        self.swap = SwapProbe(torch, eng)
+        self.decodes, self.live, self.steps, self.steady = 0, [], [], []
+        self.resumed = track_resumes(eng)
+        decode, step = eng._decode, eng.step
+
+        def counted(*args):
+            self.decodes += 1
+            self.live.append(sum(r is not None for r in eng.active))
+            if self.decodes != arm:
+                return decode(*args)
+            with burst_operands(operands):
+                return decode(*args)
+
+        def timed():
+            def marks():
+                st = eng.fabric_stats
+                return (st.preemptions, st.swap_bursts,
+                        eng.kv.prefill_bursts)
+            before, decodes = marks(), self.decodes
+            t0 = time.perf_counter()
+            n = step()
+            torch.cuda.synchronize()
+            self.steps.append(time.perf_counter() - t0)
+            if self.decodes > decodes and marks() == before:
+                self.steady.append(self.steps[-1])
+            return n
+
+        eng._decode, eng.step = counted, timed
+
+    def run(self):
+        """``(engine, swap probe, decode calls)`` for :func:`burst_launches`."""
+        return self.eng, self.swap, self.decodes
+
+
+def loadgen_phase(torch, dev, rows) -> None:
+    """The traffic harness at full width: stablelm-1.6b (24 layers, 32 KV
+    heads = N ports, random bf16 weights from seed 0) serving the seeded
+    trace :data:`LOADGEN_TRACE` (diurnal arrivals with bursts, heavy-tailed
+    lengths, three priority classes, a quarter with SLO deadlines) on the
+    oversubscribed engine :data:`LOADGEN_ENGINE`.  (1) ``loadgen.main``, the
+    CLI a user calls, replays it from ``--trace-in`` and writes
+    ``--trace-out`` and its run record under ``chiprun_out/``: kernels 1-2
+    launch exactly what the engine's counters imply, and the phase prints
+    the steady step, tok/s, the per-class TTFT, queue wait and TPOT, the
+    goodput, the shed and SLO census, preemptions, swap bursts and each
+    parked request's time to resume.  (2) ``fault_soak`` of the trace loaded
+    back from ``--trace-out`` under ``FaultInjector.seeded(0, ...)`` at the
+    reference soak test's rates: token-exact against its fault-free run,
+    zero page leaks, and the fault-free run's report and tokens equal to
+    (1)'s.  (3) A fleet of two replicas (2 slots, a 10-page pool each)
+    behind ``ReplicaRouter``: every request served or shed, none starved,
+    the fleet census the sum of the replicas', launches exact.  Then
+    kernels 1-2 at one decode step's operands (the step of the fault-free
+    soak run with the most live slots), held bit for bit and timed; their
+    launches are the three runs'."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.launch import loadgen
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.serving import ServingEngine, traffic
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace_in, trace_out, bench = (out_dir / f"loadgen_{name}.json" for name
+                                  in ("trace_in", "trace", "serving"))
+    bench.unlink(missing_ok=True)
+    cfg = get_config(LOADGEN_ARCH)
+    trace = traffic.generate_trace(traffic.TrafficConfig(
+        **LOADGEN_TRACE, vocab=cfg.vocab_size))
+    traffic.save_trace(str(trace_in), trace)
+    t, e = LOADGEN_TRACE, LOADGEN_ENGINE
+    argv = ["--arch", LOADGEN_ARCH, "--trace-in", str(trace_in),
+            "--trace-out", str(trace_out), "--bench-out", str(bench),
+            "--seed", str(t["seed"]), "--requests", str(t["n_requests"]),
+            "--arrival", t["arrival"], "--rate", str(t["rate"]),
+            "--prompt-mean", str(t["prompt_mean"]),
+            "--prompt-max", str(t["prompt_max"]),
+            "--gen-mean", str(t["gen_mean"]), "--gen-max", str(t["gen_max"]),
+            "--classes", str(t["classes"]),
+            "--deadline-frac", str(t["deadline_frac"]),
+            "--deadline-slack", str(t["deadline_slack"]),
+            "--max-slots", str(e["max_slots"]),
+            "--page-size", str(e["page_size"]),
+            "--pool-pages", str(e["pool_pages"]), "--preempt", e["preempt"],
+            "--aging", str(e["aging"]), "--max-queue", str(e["max_queue"])]
+    label = f"{LOADGEN} (1) CLI"
+    print(f"{label}: python -m repro_torch.launch.loadgen "
+          f"{' '.join(argv)}", flush=True)
+
+    # -- (1) the CLI ---------------------------------------------------------
+    probes = []
+
+    def instrumented(*args, **kwargs):
+        eng = ServingEngine(*args, **kwargs)
+        probes.append(EngineProbe(torch, eng))
+        return eng
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    loadgen.ServingEngine = instrumented
+    try:
+        loadgen.main(argv)
+    finally:
+        loadgen.ServingEngine = ServingEngine
+    counts = [mt.launch_counts()]
+    peak = torch.cuda.max_memory_allocated()
+    check(len(probes) == 1, f"{label}: {len(probes)} engines built")
+    p1 = probes[0]
+    eng1 = p1.eng
+    check_counts(counts[0], [p1.run()], label)
+    check(trace_out.read_bytes() == trace_in.read_bytes(),
+          f"{label}: --trace-out is not the trace it replayed")
+    record = json.loads(bench.read_text())["runs"][-1]
+    check("jax" not in record and record["torch"] == torch.__version__
+          and record["card"]["name"] == torch.cuda.get_device_name(0),
+          f"{label}: the run record does not name torch and the card")
+    cells = {k: v for k, v in record["cells"].items() if k != "census"}
+    census, wall = record["cells"]["census"], record["workload"]["wall_s"]
+    check(eng1.drained and eng1.kv.pool.pages_in_use == 0
+          and eng1._swap_pages_used == 0, f"{label}: not drained clean")
+    toks1 = {rid: r.generated for rid, r in eng1.recorder.requests.items()}
+    check(all(0 <= x < cfg.vocab_size for g in toks1.values() for x in g)
+          and bool(torch.isfinite(eng1.last_logits).all()),
+          f"{label}: a token outside the vocab, or non-finite logits")
+    agg = cells["aggregate"]
+    check(agg["served"] + agg["shed"] == agg["n"] == len(trace),
+          f"{label}: {agg} does not account for every request")
+    card = card_line()
+    print(f"{label}: {eng1.step_count} engine steps, {p1.decodes} decode "
+          f"steps, wall {wall:.3f} s; median steady step "
+          f"{statistics.median(p1.steady) * 1e3:.3f} ms over "
+          f"{len(p1.steady)} (median step "
+          f"{statistics.median(p1.steps) * 1e3:.3f} ms); {agg['tokens']} "
+          f"tokens, {agg['tokens'] / wall:.1f} tok/s; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; launches {counts[0]}; "
+          f"{card}", flush=True)
+    for name, c in cells.items():
+        print(f"{label} {name}: n {c['n']}, served {c['served']}, shed "
+              f"{c['shed']}, goodput {c['goodput']}; TTFT p50/p90/p99 "
+              f"{c['ttft_p50']}/{c['ttft_p90']}/{c['ttft_p99']} steps, queue "
+              f"wait {c['wait_p50']}/{c['wait_p90']}/{c['wait_p99']}, TPOT "
+              f"{c['tpot_p50']}/{c['tpot_p90']}/{c['tpot_p99']}; SLO missed "
+              f"{c['slo_missed_served']} served late, {c['slo_missed_shed']} "
+              f"shed; {card}", flush=True)
+    print(f"{label} census: {census}", flush=True)
+    print(f"{label}: {resume_line(p1.resumed)}; {p1.swap.line()}; {card}",
+          flush=True)
+
+    # -- (2) the fault soak of the trace loaded back -------------------------
+    loaded = traffic.load_trace(str(trace_out))
+    check([x.to_json() for x in loaded] == [x.to_json() for x in trace],
+          f"{LOADGEN}: the trace loaded back differs")
+    params, t_max = eng1.params, record["workload"]["t_max"]
+    arm = p1.live.index(max(p1.live)) + 1
+    operands, soak_probes = {}, []
+
+    def make_engine(fault_injector=None):
+        eng = ServingEngine(cfg, params, t_max=t_max, check_pool=True,
+                            fault_injector=fault_injector, **LOADGEN_ENGINE)
+        soak_probes.append(EngineProbe(
+            torch, eng, arm=None if fault_injector else arm,
+            operands=operands))
+        return eng
+    inj = FaultInjector.seeded(0, 4096, **LOADGEN_SOAK)
+    label = f"{LOADGEN} (2) fault soak"
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        ref_rec, soak_rec, soak_eng = traffic.fault_soak(make_engine, loaded,
+                                                         inj)
+    except AssertionError as err:
+        fail(f"{label}: {err}")
+    counts.append(mt.launch_counts())
+    soak_wall = time.perf_counter() - t0
+    check(json.loads(json.dumps(ref_rec.report())) == cells,
+          f"{label}: the fault-free run's report differs from the CLI's "
+          f"record")
+    check({rid: r.generated for rid, r in ref_rec.requests.items()} == toks1,
+          f"{label}: the fault-free run served other tokens than the CLI")
+    fs = soak_eng.fabric_stats
+    check(fs.faults_recovered + fs.bursts_retried + len(inj.exhaust_fired)
+          > 0 and soak_rec.starved() == [],
+          f"{label}: no fault hit, or a request starved")
+    print(f"{label}: token-exact against the fault-free run, zero page leaks "
+          f"at drain; the fault-free report equal to the CLI's record; "
+          f"{len(inj.fired)} mid-step failures, {len(inj.exhaust_fired)} "
+          f"exhausted pools, {inj.corrupted} corrupted swaps "
+          f"({fs.faults_recovered} faults recovered, {fs.bursts_retried} "
+          f"bursts retried); soak served "
+          f"{soak_rec.report()['aggregate']['served']}, shed "
+          f"{soak_rec.report()['aggregate']['shed']}; both runs "
+          f"{soak_wall:.3f} s, steady step with the snapshot clone "
+          f"{statistics.median(soak_probes[1].steady) * 1e3:.3f} ms; "
+          f"launches {counts[1]}; {card}", flush=True)
+
+    # -- (3) two replicas behind the router ----------------------------------
+    label = f"{LOADGEN} (3) router"
+    fleet = []
+
+    def replica():
+        eng = ServingEngine(cfg, params, t_max=t_max, check_pool=True,
+                            **dict(LOADGEN_ENGINE, **LOADGEN_REPLICA))
+        fleet.append(EngineProbe(torch, eng))
+        return eng
+    router = traffic.ReplicaRouter([replica()
+                                    for _ in range(LOADGEN_REPLICAS)])
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    rrec = traffic.drive(router, loaded)
+    torch.cuda.synchronize()
+    counts.append(mt.launch_counts())
+    check_counts(counts[2], [p.run() for p in fleet], label)
+    stats = router.stats()
+    check(all(v == sum(getattr(e.fabric_stats, k) for e in router.engines)
+              for k, v in stats.items()),
+          f"{label}: the fleet census is not the sum of the replicas'")
+    check(rrec.starved() == [] and len(rrec.requests) == len(trace)
+          and all(r.done for r in rrec.requests.values()),
+          f"{label}: a request neither served nor shed")
+    for eng in router.engines:
+        check(eng.drained and eng.kv.pool.pages_in_use == 0,
+              f"{label}: a replica did not drain clean")
+    ragg = rrec.report()["aggregate"]
+    both = [rid for rid, r in rrec.requests.items()
+            if r.shed_reason is None and toks1[rid]]
+    same = sum(rrec.requests[rid].generated == toks1[rid] for rid in both)
+    print(f"{label}: {ragg['served']} served, {ragg['shed']} shed over "
+          f"{router.step_count} steps in {time.perf_counter() - t0:.3f} s "
+          f"(per replica {[p.decodes for p in fleet]} decode steps, "
+          f"{[e.fabric_stats.preemptions for e in router.engines]} "
+          f"preemptions); goodput {ragg['goodput']}; of the {len(both)} "
+          f"requests served here and in the CLI run, {same} with equal "
+          f"streams (2 rows a step against 4); launches {counts[2]}",
+          flush=True)
+    print(rrec.format_table(), flush=True)
+
+    # -- kernels 1-2 at one decode step's operands ---------------------------
+    check(set(operands) == {"gather", "scatter"},
+          f"{LOADGEN}: decode {arm} of the fault-free soak reached "
+          f"{sorted(operands)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def words(shape):
+        info = torch.iinfo(torch.int32)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+    rows[LOADGEN] = burst_step_rows(torch, words, operands, LOADGEN, False,
+                                    rows_what="live-frame rows",
+                                    slots_what="pool lines")
+    for name, r in rows[LOADGEN].items():
+        r["launches"] = sum(c[name] for c in counts)
+        set_bound(r)
+        print_row(name, LOADGEN, r)
+    del params, eng1, probes, soak_probes, fleet, router, operands
+    del soak_eng, ref_rec, soak_rec, rrec
+    free_model(torch, LOADGEN)
+    print(f"{LOADGEN}: phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def read_sim_phase(torch, dev) -> None:
+    """The paper's burst simulator on the card: the constant N-cycle
+    latency of one line (the reference's ``tests/test_burst.py::
+    test_single_line_constant_latency``), its pop equal bit for bit to the
+    same scenario on the CPU."""
+    import numpy as np
+
+    from repro_torch.core import MedusaReadSim
+
+    n = 8
+    line = np.random.RandomState(0).randn(n)
+    pops = []
+    for where in (dev, torch.device("cpu")):
+        sim = MedusaReadSim(n, depth=4, device=where)
+        sim.push_line(3, line)
+        sim.run(n)
+        check(sim.completion_latency(3, 0) == n,
+              f"MedusaReadSim on {where}: latency "
+              f"{sim.completion_latency(3, 0)}, not {n} cycles")
+        pops.append(sim.pop_line(3, 0).cpu().reshape(-1))
+    check(torch.equal(pops[0].view(torch.int32), pops[1].view(torch.int32))
+          and torch.equal(pops[1], torch.from_numpy(line).float()),
+          "MedusaReadSim: the card's pop differs from the CPU's or the line")
+    print(f"MedusaReadSim N={n} on {torch.cuda.get_device_name(0)}: one line "
+          f"completes in the constant {n} cycles, its pop bit-equal to the "
+          f"CPU's", flush=True)
 
 
 def churn_card_vs_cpu(torch, dev) -> None:
@@ -2485,6 +2883,8 @@ def main() -> None:
     fsdp_phase(torch, dev, rows)
     preempt_phase(torch, dev, rows)
     moe_phase(torch, dev, rows)
+    loadgen_phase(torch, dev, rows)
+    read_sim_phase(torch, dev)
     card_vs_cpu(torch, dev)
 
     # one entry per kernel and path: its launches on that path's runs, its

@@ -70,6 +70,12 @@ class PageTable:
     def free(self, slot: int) -> None:
         self.used[slot] = 0
 
+    @property
+    def occupancy(self) -> float:
+        """Logical pages in use over the dense reservation."""
+        total = self.n_slots * self.pages_per_slot
+        return float(self.used.sum()) / total if total else 0.0
+
 
 class PagePool:
     """Shared physical page frames + the per-slot logical→physical table.
@@ -129,6 +135,10 @@ class PagePool:
     @property
     def pages_in_use(self) -> int:
         return self.n_pages - self.free_pages
+
+    @property
+    def occupancy(self) -> float:
+        return self.pages_in_use / self.n_pages
 
     def mapped(self, slot: int) -> int:
         return int((self.table[slot] >= 0).sum())
@@ -282,6 +292,17 @@ class PagedKVCache:
         """True when KV storage is the shared physical page pool."""
         return self.pool is not None
 
+    @property
+    def occupancy(self) -> float:
+        """Fraction of physical frames in use (pool) / logical pages used
+        against the dense reservation (dense mode)."""
+        return self.pool.occupancy if self.pool else self.table.occupancy
+
+    @property
+    def dense_reserved_pages(self) -> int:
+        """Pages the dense layout reserves regardless of occupancy."""
+        return self.max_slots * self.table.pages_per_slot
+
     def page_table_device(self, device) -> torch.Tensor:
         """The logical→physical table as a device operand
         (``int32 [max_slots, pages_per_slot]``)."""
@@ -299,6 +320,10 @@ class PagedKVCache:
         self._dirty[slot] = span
 
     # -- admission -------------------------------------------------------------
+    def refill(self, slot: int, req_cache, n_tokens: int) -> None:
+        """Install a single request by splice; see :meth:`admit_wave`."""
+        self.admit_wave([(slot, req_cache, n_tokens)], burst=False)
+
     def admit_wave(self, entries: Sequence[Tuple[int, object, int]],
                    stats: Optional[SchedulerStats] = None,
                    burst: Optional[bool] = None) -> None:

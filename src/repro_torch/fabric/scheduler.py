@@ -88,6 +88,12 @@ class SchedulerStats:
     aging_promotions: int = 0
     tokens_dropped: int = 0
 
+    @property
+    def calls_saved(self) -> int:
+        """Network calls the multiplexing saved: streams served minus
+        network calls made."""
+        return self.streams_served - self.network_calls
+
 
 @dataclasses.dataclass
 class _Queued:

@@ -229,7 +229,8 @@ def main(argv=None):
               f"timesteps; {kv.prefill_splices} prefill splices")
     else:
         print(f"page pool: {pool.n_pages} physical pages x "
-              f"{pool.page_size} timesteps; {pool.pages_allocated} "
+              f"{pool.page_size} timesteps (dense reservation "
+              f"{kv.dense_reserved_pages} pages); {pool.pages_allocated} "
               f"allocated, {pool.pages_reclaimed} reclaimed, "
               f"{pool.pages_in_use} in use at exit; {kv.prefill_bursts} "
               f"prefill write bursts, {kv.prefill_splices} prefill splices")

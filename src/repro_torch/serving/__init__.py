@@ -1,7 +1,13 @@
-"""``repro_torch.serving`` — the continuous-batching engine (port of
-``repro.serving``; its traffic harness is ported in a later slice, ROADMAP
-§1 item 5)."""
+"""``repro_torch.serving`` — the continuous-batching engine and its traffic
+harness (port of ``repro.serving``): seeded traces, the lifecycle
+recorder, the replica router, trace replay and the fault soak."""
 
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.traffic import (MetricsRecorder, ReplicaRouter,
+                                         TraceRecord, TrafficConfig, drive,
+                                         fault_soak, generate_trace,
+                                         load_trace, save_trace, trace_t_max)
 
-__all__ = ["ServingEngine", "Request"]
+__all__ = ["ServingEngine", "Request", "TrafficConfig", "TraceRecord",
+           "MetricsRecorder", "ReplicaRouter", "generate_trace", "drive",
+           "fault_soak", "save_trace", "load_trace", "trace_t_max"]

@@ -207,7 +207,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
-    probe = ("import sys, repro_torch.launch.serve; "
+    probe = ("import sys, repro_torch.launch.serve, "
+             "repro_torch.launch.loadgen, repro_torch.serving.traffic, "
+             "repro_torch.core; "
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
