@@ -104,7 +104,21 @@ Phases (any fault exits non-zero):
    and one prefill's dispatch and combine operands, and timed, with the
    wrappers' host time per call (paths ``granite-moe-3b-a800m moe
    decode`` / ``prefill``);
-12. loadgen — the traffic harness at full width: a seeded trace (16
+12. families — the last decoder-only families at full width (random bf16
+   weights from seed 0): internvl2-1b one-shot, 2 rows of 256 patch
+   embeddings from the data stub + 192 tokens, 32 steps, kernel 4 exactly
+   48 launches a step, tokens and logits bit-identical with the kernels
+   off and on the crossbar, and its engine (4 x (448 + 64), kernels 1-2
+   at 256-byte frames, the same tokens kernels off and on the crossbar);
+   recurrentgemma-2b one-shot past its 2048 window (2 x 3072 + 32, kernel
+   4 16 launches a step on the ring, kernels on and off bit-identical) and
+   its engine without a pool (no kernel); mamba2-780m one-shot (2 x 1000
+   + 32) and engine (no kernel); each engine's agreement with its
+   one-shot; kernels 1, 2 and 4 held and timed at those shapes (paths
+   ``internvl2-1b engine``, ``internvl2-1b one-shot``,
+   ``recurrentgemma-2b one-shot``); the three float32 smokes card vs CPU
+   (tokens and counters exact, logits and every cache leaf within 1e-4);
+13. loadgen — the traffic harness at full width: a seeded trace (16
    requests, diurnal arrivals with bursts, lognormal prompts of 16-448 and
    generations of 4-64 tokens, three priority classes, a quarter with SLO
    deadlines) replayed through stablelm-1.6b by ``repro_torch.launch.
@@ -119,13 +133,13 @@ Phases (any fault exits non-zero):
    held and timed at one decode step's operands (path ``loadgen:
    stablelm-1.6b``); then the paper's burst simulator on the card, one
    line in the constant N cycles, its pop bit-equal to the CPU's;
-13. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
+14. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
    float32 agree between the card and the CPU within 1e-4 (engine step;
    gemma3 one-shot), granite-moe's tokens and every ``SchedulerStats``
    field exactly; the stablelm smoke through the reference's churn trace
    (swap, recompute, swap with faults): tokens, ``SchedulerStats`` and the
    pool state equal, cache bytes within 1e-4;
-14. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+15. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
    bytes or by operations, at that path's shapes; a matmul's entry also
    names its route; the swap streams' entries are the paths ``swap:
@@ -241,6 +255,19 @@ CHURN_SPEC = ((0, 7, 8, 0), (0, 8, 8, 0), (2, 9, 6, 2), (3, 7, 6, 1),
               (4, 6, 6, 2))
 # host seconds in the swap path's parity words, by where the bytes lie
 PARITY = {"host_s": 0.0, "device_s": 0.0}
+# the families phase: the one-shot batch and decode steps of each family;
+# internvl2-1b's text prompt behind its 256 patches (one-shot) and its
+# engine's text prompt and generated tokens; recurrentgemma-2b's prompt
+# (past the 2048 window, and a multiple of the 1024-key chunk the prefill
+# attends long prompts in); mamba2-780m's (off the 256 SSD chunk); the
+# generated tokens of their engines
+FAMILY_BATCH, FAMILY_STEPS = 2, 32
+VLM_ARCH, VLM_TEXT, VLM_ENGINE_PROMPT, VLM_ENGINE_GEN = (
+    "internvl2-1b", 192, 448, 64)
+RG_ARCH, RG_PROMPT = "recurrentgemma-2b", 3072
+SSM_ARCH, SSM_PROMPT = "mamba2-780m", 1000
+FAMILY_GEN = 32
+VLM_ONE_SHOT, RG_ONE_SHOT = f"{VLM_ARCH} one-shot", f"{RG_ARCH} one-shot"
 
 
 def fail(msg: str) -> None:
@@ -692,6 +719,7 @@ def leaf_row(torch, words, shape, flush, what: str) -> dict:
                       f"transpose ({what})")
     words_equal(torch, mt.medusa_transpose_tiles(x), got,
                 f"transpose ({what}) launched again")
+    dst = torch.empty_like(x)
     return dict(
         max_abs_err=err, bytes=2 * x.numel() * 2,
         ms=time_ms(torch, lambda: mt.medusa_transpose_tiles(x), flush=flush),
@@ -699,6 +727,7 @@ def leaf_row(torch, words, shape, flush, what: str) -> dict:
                          flush=flush),
         library_ms=time_ms(torch, lambda: x.transpose(1, 2).contiguous(),
                            flush=flush),
+        copy_ms=time_ms(torch, lambda: dst.copy_(x), flush=flush),
         shape=f"{list(shape)} bf16 ({what})")
 
 
@@ -1333,9 +1362,11 @@ def stablelm_phase(torch, dev, rows, with_profile: bool):
     torch.cuda.empty_cache()
 
 
-def generate(torch, api, params, prompt, cfg, steps: int, t_max: int):
-    """``api.greedy_generate`` with every step's logits kept and the
-    synchronised interval between consecutive steps' logits timed."""
+def generate(torch, api, params, prompt, cfg, steps: int, t_max: int,
+             extra=None):
+    """``api.greedy_generate`` (with the batch entries ``extra``) with
+    every step's logits kept and the synchronised interval between
+    consecutive steps' logits timed."""
     logits, stamps = [], []
 
     def on_step(i, lg):
@@ -1343,9 +1374,17 @@ def generate(torch, api, params, prompt, cfg, steps: int, t_max: int):
         stamps.append(time.perf_counter())
         logits.append(lg.clone())
     toks = api.greedy_generate(params, prompt, cfg, steps=steps, t_max=t_max,
-                               on_step=on_step)
+                               extra=extra, on_step=on_step)
     torch.cuda.synchronize()
     return toks, logits, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def same_steps(torch, logits, other, label: str) -> None:
+    """Fail unless two runs' step logits are bit-identical."""
+    for i, (a, c) in enumerate(zip(logits, other)):
+        check(torch.equal(a.view(torch.int32), c.view(torch.int32)),
+              f"{label}: step {i} logits differ "
+              f"(max abs {float((a - c).abs().max())})")
 
 
 def gemma_phase(torch, dev, rows, with_profile: bool):
@@ -1401,10 +1440,8 @@ def gemma_phase(torch, dev, rows, with_profile: bool):
         ops.use_kernels(True)
     check(torch.equal(toks, toks_off),
           "one-shot tokens differ with the kernels on and off")
-    for i, (a, c) in enumerate(zip(logits, logits_off)):
-        check(torch.equal(a.view(torch.int32), c.view(torch.int32)),
-              f"one-shot step {i} logits differ with the kernels on and off "
-              f"(max abs {float((a - c).abs().max())})")
+    same_steps(torch, logits, logits_off, "gemma3 one-shot, kernels on and "
+               "off")
     print(f"gemma3-4b one-shot kernels off: tokens and all {g} steps' logits "
           f"bit-identical; median decode step "
           f"{statistics.median(steps_off) * 1e3:.3f} ms", flush=True)
@@ -1421,10 +1458,8 @@ def gemma_phase(torch, dev, rows, with_profile: bool):
           f"{mt.launch_counts()}")
     check(torch.equal(toks, toks_x),
           "one-shot tokens differ between the medusa and crossbar fabrics")
-    for i, (a, c) in enumerate(zip(logits, logits_x)):
-        check(torch.equal(a.view(torch.int32), c.view(torch.int32)),
-              f"one-shot step {i} logits differ between the medusa and "
-              f"crossbar fabrics (max abs {float((a - c).abs().max())})")
+    same_steps(torch, logits, logits_x, "gemma3 one-shot, the medusa and "
+               "crossbar fabrics")
     print(f"gemma3-4b one-shot crossbar fabric: tokens and all {g} steps' "
           f"logits bit-identical to medusa's; median decode step "
           f"{statistics.median(steps_x) * 1e3:.3f} ms (medusa "
@@ -2327,6 +2362,291 @@ def moe_phase(torch, dev, rows) -> None:
     free_model(torch, MOE_ARCH)
 
 
+def one_shot(torch, cfg, params, prompt, steps: int, t_max: int, label: str,
+             want: dict, extra=None):
+    """``api.greedy_generate`` of ``prompt`` (``steps`` decode steps, the
+    batch entries ``extra``): launch counts reset just before and read just
+    after (they must be ``want``), the peak memory reset before; checks the
+    tokens lie in the vocab and every step's logits are finite.  Prints the
+    median decode step, tok/s and the peak memory.  Returns the tokens,
+    every step's logits and the launch counts."""
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.models import api
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, logits, times = generate(torch, api, params, prompt, cfg, steps,
+                                   t_max, extra=extra)
+    wall = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    check(counts == {**ZERO_LAUNCHES, **want},
+          f"{label}: launches {counts} != {want}")
+    check(tuple(toks.shape) == (prompt.shape[0], steps),
+          f"{label}: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{label}: token outside the vocab")
+    check(all(bool(torch.isfinite(lg).all()) for lg in logits),
+          f"{label}: non-finite logits")
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    print(f"{label}: batch {prompt.shape[0]} x {steps} decode steps in "
+          f"{wall:.3f}s ({prompt.shape[0] * steps / wall:.1f} tok/s incl. "
+          f"prefill); median decode step "
+          f"{statistics.median(times) * 1e3:.3f} ms; launches per decode step "
+          f"{per_step or 'none'}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    return toks, logits, counts
+
+
+def agreement(engine_toks, shot) -> str:
+    """How many of the one-shot's decoded tokens the engine served at the
+    same place (the engine's first token is the prefill's)."""
+    shot = shot.tolist()
+    same = sum(a == b for row, e in zip(shot, engine_toks)
+               for a, b in zip(row, e[1:]))
+    total = sum(min(len(row), len(e) - 1) for row, e in zip(shot,
+                                                           engine_toks))
+    return f"{same} of {total}"
+
+
+def families_phase(torch, dev, rows) -> None:
+    """The last decoder-only families at full width, random bf16 weights
+    from seed 0, only the depth of the runs cut.  (a) internvl2-1b (24
+    layers, 2 KV heads = N ports of 64 lanes): the one-shot of 2 rows of
+    256 patch embeddings from the data stub and 192 text tokens, 32 decode
+    steps, kernel 4 exactly 48 launches a step on its [2, 480, 2, 64]
+    leaves, the tokens and every step's logits bit-identical with the
+    kernels off and on the crossbar fabric; the engine, 4 requests of 448
+    text tokens + 64 on pages of 64 with the fused gather, kernels 1-2 at 2
+    launches a step and 2 a wave, the tokens equal with the kernels off and
+    on the crossbar.  (b) recurrentgemma-2b (26 layers ``RRL``, window
+    2048): the one-shot of 2 rows of 3072 tokens (past the window: the
+    prefill takes the ring roll and decode wraps), 32 steps, kernel 4 16
+    launches a step on its [2, 2048, 1, 256] ring leaves, the same tokens
+    and logits with the kernels off; the engine, 4 requests of 3072 + 32
+    on 4 slots, no pool and no kernel (its ring layers attend per row).
+    (c) mamba2-780m (48 ``M`` layers): the one-shot of 2 rows of 1000
+    tokens (off the 256 chunk), 32 steps, and the engine, 4 requests of
+    1000 + 32: no kernel runs.  Each engine's agreement with its one-shot
+    is printed.  (d) :func:`families_card_vs_cpu`.  (e) Kernels 1, 2 and
+    4 at the new shapes, held bit for bit and timed (paths
+    ``internvl2-1b engine``, ``internvl2-1b one-shot``,
+    ``recurrentgemma-2b one-shot``)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    b, g = FAMILY_BATCH, FAMILY_STEPS
+
+    # -- (a) internvl2-1b --------------------------------------------------
+    cfg, params = load_model(torch, dev, VLM_ARCH)
+    p = cfg.n_patches
+    batch = SyntheticLM(cfg, batch=b, seq=VLM_TEXT + p, seed=0).batch_at(0)
+    check(batch["tokens"].shape == (b, VLM_TEXT)
+          and batch["patch_embeds"].shape == (b, p, cfg.d_model),
+          f"{VLM_ARCH}: the data stub gave {batch['tokens'].shape} tokens "
+          f"and {batch['patch_embeds'].shape} patches")
+    prompt = torch.as_tensor(batch["tokens"], device=dev)
+    extra = {"patch_embeds": torch.as_tensor(batch["patch_embeds"],
+                                             device=dev)}
+    t_vlm = p + VLM_TEXT + g
+    per_step = 2 * cfg.n_layers
+    label = f"{VLM_ARCH} one-shot ({p} patches + {VLM_TEXT} tokens)"
+    toks, logits, counts = one_shot(
+        torch, cfg, params, prompt, g, t_vlm, label,
+        {"medusa_transpose_tiles": per_step * g}, extra)
+    rows[VLM_ONE_SHOT] = {"medusa_transpose_tiles": {
+        "launches": counts["medusa_transpose_tiles"]}}
+    ops.use_kernels(False)
+    try:
+        toks_off, logits_off, _ = one_shot(
+            torch, cfg, params, prompt, g, t_vlm, f"{label}, kernels off", {},
+            extra)
+    finally:
+        ops.use_kernels(True)
+    toks_x, logits_x, _ = one_shot(
+        torch, dataclasses.replace(cfg, kv_layout="crossbar"), params, prompt,
+        g, t_vlm, f"{label}, crossbar fabric", {}, extra)
+    for what, (t_o, l_o) in (("kernels off", (toks_off, logits_off)),
+                             ("crossbar fabric", (toks_x, logits_x))):
+        check(torch.equal(toks, t_o), f"{VLM_ARCH} one-shot: the {what} run "
+              f"served other tokens")
+        same_steps(torch, logits, l_o, f"{VLM_ARCH} one-shot, {what}")
+    print(f"{VLM_ARCH} one-shot: tokens and all {g} steps' logits "
+          f"bit-identical with the kernels on, off and on the crossbar "
+          f"fabric; {per_step} layout-engine launches a step", flush=True)
+    del logits, logits_off, logits_x, extra
+
+    prompts = SyntheticLM(cfg, batch=ENGINE_SLOTS, seq=VLM_ENGINE_PROMPT + p,
+                          seed=0).batch_at(0)["tokens"]
+    ge = VLM_ENGINE_GEN
+    want = {"gather_burst_network_tiles": 2 * (ge - 1),
+            "scatter_burst_network_tiles": 2 * (ge - 1) + 2}
+    toks_e, _, counts, _ = engine_run(
+        torch, cfg, params, prompts, ge, f"{VLM_ARCH} engine (fused gather)",
+        want)
+    rows[f"{VLM_ARCH} engine"] = {name: {"launches": counts[name]}
+                                  for name in want}
+    ops.use_kernels(False)
+    try:
+        off, _, _, _ = engine_run(torch, cfg, params, prompts, ge,
+                                  f"{VLM_ARCH} engine (kernels off)", {})
+    finally:
+        ops.use_kernels(True)
+    cross, _, _, _ = engine_run(
+        torch, dataclasses.replace(cfg, kv_layout="crossbar"), params,
+        prompts, ge, f"{VLM_ARCH} engine (crossbar fabric)", {})
+    check(off == toks_e and cross == toks_e, f"{VLM_ARCH}: the engine served "
+          f"other tokens with the kernels off or on the crossbar fabric")
+    print(f"{VLM_ARCH} engine: tokens equal with the kernels on, off and on "
+          f"the crossbar fabric ({ENGINE_SLOTS} x {ge})", flush=True)
+    del params
+    free_model(torch, VLM_ARCH)
+
+    # -- (b) recurrentgemma-2b and (c) mamba2-780m ------------------------
+    for arch, s in ((RG_ARCH, RG_PROMPT), (SSM_ARCH, SSM_PROMPT)):
+        cfg, params = load_model(torch, dev, arch)
+        prompts = SyntheticLM(cfg, batch=ENGINE_SLOTS, seq=s,
+                              seed=0).batch_at(0)["tokens"]
+        prompt = torch.as_tensor(prompts[:b], device=dev)
+        rings = cfg.layer_types().count("L")
+        want = ({"medusa_transpose_tiles": 2 * rings * g} if rings else {})
+        label = f"{arch} one-shot (prompt {s})"
+        toks, logits, counts = one_shot(torch, cfg, params, prompt, g, s + g,
+                                        label, want)
+        if rings:
+            rows[RG_ONE_SHOT] = {"medusa_transpose_tiles": {
+                "launches": counts["medusa_transpose_tiles"]}}
+            ops.use_kernels(False)
+            try:
+                toks_off, logits_off, _ = one_shot(
+                    torch, cfg, params, prompt, g, s + g,
+                    f"{label}, kernels off", {})
+            finally:
+                ops.use_kernels(True)
+            check(torch.equal(toks, toks_off), f"{arch} one-shot: other "
+                  f"tokens with the kernels off")
+            same_steps(torch, logits, logits_off,
+                       f"{arch} one-shot, kernels off")
+            print(f"{arch} one-shot: tokens and all {g} steps' logits "
+                  f"bit-identical with the kernels on and off; "
+                  f"{2 * rings} layout-engine launches a step", flush=True)
+            del logits_off
+        else:
+            print(f"{arch} one-shot: no kernel runs on this path (no "
+                  f"attention leaf); launches {counts}", flush=True)
+        del logits
+        toks_e, _, counts, stats = engine_run(
+            torch, cfg, params, prompts, FAMILY_GEN,
+            f"{arch} engine (no page pool)", {})
+        check(stats.flushes == 0, f"{arch} engine: {stats.flushes} bursts "
+              f"ran without a full-attention leaf")
+        print(f"{arch} engine: no kernel runs (no pool, the per-layer "
+              f"decode); launches {counts}; tokens agree with the one-shot "
+              f"on {agreement(toks_e[:b], toks)} decoded positions",
+              flush=True)
+        del params
+        free_model(torch, arch)
+
+    # -- (e) kernels 1, 2 and 4 at the new shapes -------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+
+    def words(shape, dtype=torch.int32):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(dtype)
+    vlm = burst_rows(torch, gen, words, VLM_ARCH, VLM_ENGINE_PROMPT,
+                     VLM_ENGINE_GEN)
+    del vlm["burst_network_tiles"]              # not on this path
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    new = {f"{VLM_ARCH} engine": vlm,
+           VLM_ONE_SHOT: {"medusa_transpose_tiles": leaf_row(
+               torch, words, (b, t_vlm, 2, 64), flush,
+               f"{VLM_ARCH} K/V leaf")},
+           RG_ONE_SHOT: {"medusa_transpose_tiles": leaf_row(
+               torch, words, (b, 2048, 1, 256), flush,
+               f"{RG_ARCH} ring leaf")}}
+    del flush
+    for path, by_kernel in new.items():
+        for name, r in by_kernel.items():
+            rows[path][name].update(r)
+            set_bound(rows[path][name])
+            print_row(name, path, rows[path][name])
+            if "copy_ms" in r:
+                print(f"  ({path}: a contiguous copy_ of the same bytes "
+                      f"{r['copy_ms']:.4f} ms)", flush=True)
+
+    families_card_vs_cpu(torch, dev)
+    print(f"families phase: {time.perf_counter() - t_phase:.1f}s wall; "
+          f"{card_line()}", flush=True)
+
+
+def families_card_vs_cpu(torch, dev) -> None:
+    """The three families' smoke configs in float32, the same parameters on
+    the card and on the CPU: the one-shot (internvl2 with its patch
+    prefix) — tokens exact, every step's logits and every cache leaf of
+    the prefill within 1e-4; the engine (3 requests on 3 slots) — tokens
+    and every ``SchedulerStats`` field exact, the last step's logits and
+    every cache leaf (conv, h, state, ring, pool) within 1e-4."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.serving import Request, ServingEngine
+
+    for arch in (VLM_ARCH, RG_ARCH, SSM_ARCH):
+        small = dataclasses.replace(get_smoke(arch), dtype="float32")
+        p = small.n_patches
+        data = SyntheticLM(small, batch=3, seq=12 + p, seed=1).batch_at(0)
+        out = {}
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            params = api.init_params(small, seed=1, device="cpu").to(device)
+            prompt = torch.as_tensor(data["tokens"], device=device)
+            extra = ({"patch_embeds": torch.as_tensor(data["patch_embeds"],
+                                                      device=device)}
+                     if p else {})
+            _, caches = api.prefill_fn(params, {"tokens": prompt, **extra},
+                                       small, 24 + p)
+            seen = []
+            toks = api.greedy_generate(
+                params, prompt, small, steps=6, t_max=24 + p, extra=extra,
+                on_step=lambda i, lg: seen.append(lg.cpu()))
+            eng = ServingEngine(small, params, max_slots=3, t_max=20)
+            reqs = [Request(i, data["tokens"][i], max_new_tokens=6)
+                    for i in range(3)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_to_completion(max_steps=64)
+            out[name] = dict(
+                toks=toks.tolist(), logits=seen,
+                prefill=[leaf.cpu() for kind in ("unit", "tail")
+                         for entry in caches[kind] for leaf in entry.values()],
+                served=[r.generated for r in reqs],
+                stats=dataclasses.asdict(eng.fabric_stats),
+                last=eng.last_logits.cpu(),
+                leaves=[leaf.cpu() for *_, leaf in eng._cache_leaves()])
+        a, c = out["gpu"], out["cpu"]
+        check(a["toks"] == c["toks"], f"{arch} smoke one-shot: card and CPU "
+              f"tokens differ")
+        check(a["served"] == c["served"], f"{arch} smoke engine: card and "
+              f"CPU tokens differ")
+        check(a["stats"] == c["stats"], f"{arch} smoke engine: card and CPU "
+              f"SchedulerStats differ: {a['stats']} vs {c['stats']}")
+        errs = {}
+        for what in ("logits", "prefill", "leaves"):
+            check(len(a[what]) == len(c[what]) > 0, f"{arch}: no {what}")
+            errs[what] = max(float((x - y).abs().max())
+                             for x, y in zip(a[what], c[what]))
+        errs["last"] = float((a["last"] - c["last"]).abs().max())
+        check(max(errs.values()) <= 1e-4, f"{arch} smoke: card vs CPU "
+              f"differ beyond 1e-4: {errs}")
+        print(f"smoke {arch} float32 card vs CPU: one-shot and engine tokens "
+              f"and all SchedulerStats fields equal; max abs diff "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + " (tolerance 1e-4)", flush=True)
+
+
 def track_resumes(eng) -> list:
     """Wrap ``eng``'s preemption and installation: for each parked request
     that is admitted again, the returned list gains ``(steps, seconds,
@@ -2883,6 +3203,7 @@ def main() -> None:
     fsdp_phase(torch, dev, rows)
     preempt_phase(torch, dev, rows)
     moe_phase(torch, dev, rows)
+    families_phase(torch, dev, rows)
     loadgen_phase(torch, dev, rows)
     read_sim_phase(torch, dev)
     card_vs_cpu(torch, dev)

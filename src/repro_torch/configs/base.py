@@ -127,10 +127,30 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """A Mamba-2 (SSD) mixer: state width ``d_state``, heads of
+    ``head_dim`` over an inner width of ``expand * d_model``, a causal
+    conv of ``conv_width`` taps and the SSD chunk length ``chunk``."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """A Griffin recurrent block: the RG-LRU over ``lru_width`` channels
+    (0 = ``d_model``) after a causal conv of ``conv_width`` taps, with the
+    gate sharpness constant ``c``."""
+    lru_width: int = 0
+    conv_width: int = 4
+    c: float = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One architecture.  The SSM and RG-LRU sub-family configs of the
-    reference come with their slices; the fields the ported decoder reads
-    are the reference's, with the same defaults."""
+    """One architecture; the fields and defaults are the reference's."""
     name: str
     family: str                   # dense | ssm | hybrid | moe | audio | vlm
     n_layers: int
@@ -140,7 +160,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0             # 0 → d_model // n_heads
-    block_pattern: str = "A"      # 'A' full attention (this slice)
+    # 'A' full attention, 'L' sliding window, 'R' RG-LRU, 'M' Mamba-2
+    block_pattern: str = "A"
     sliding_window: int = 0
     rope_theta: float = 10_000.0
     rope_theta_global: float = 0.0
@@ -148,8 +169,8 @@ class ModelConfig:
     mlp: str = "swiglu"           # swiglu | geglu | gelu
     tie_embeddings: bool = True
     moe: Optional[MoEConfig] = None
-    ssm: Optional[object] = None
-    rglru: Optional[object] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     encoder_layers: int = 0
     encoder_seq: int = 1500
     n_patches: int = 0
@@ -205,19 +226,37 @@ class ModelConfig:
         return (self.moe.n_experts * self._mlp_params(self.moe.expert_d_ff)
                 + self.d_model * self.moe.n_experts)
 
+    def _rglru_params(self) -> int:
+        w = (self.rglru.lru_width or self.d_model) if self.rglru \
+            else self.d_model
+        # in/out projections + conv + input and recurrence gates + lambda
+        conv = w * self.rglru.conv_width if self.rglru else 0
+        return 2 * self.d_model * w + conv + 2 * w * w + w
+
+    def _mamba_params(self) -> int:
+        s = self.ssm
+        d_in = s.expand * self.d_model
+        nh = d_in // s.head_dim
+        in_p = self.d_model * (2 * d_in + 2 * s.d_state + nh)
+        conv = s.conv_width * (d_in + 2 * s.d_state)
+        return in_p + conv + d_in * self.d_model + nh + d_in
+
     def param_count(self) -> int:
-        """Total parameter count (embeddings included once if tied) for the
-        attention-only families the port serves (dense and MoE)."""
-        if self.encoder_layers or any(t not in ("A", "L")
-                                      for t in self.layer_types()):
+        """Total parameter count (embeddings included once if tied), the
+        reference's analytic count.  The encoder-decoder family (whisper)
+        comes with its slice (ROADMAP §1 item 7)."""
+        if self.encoder_layers:
             raise NotImplementedError(
-                "param_count covers attention-only configs (ROADMAP §1 "
-                "item 7: other families)")
+                "param_count of encoder-decoder configs is ported with "
+                "whisper (ROADMAP §1 item 7)")
         total = self.vocab_size * self.d_model * (
             1 if self.tie_embeddings else 2)
-        for _ in self.layer_types():
-            total += (self._attn_params() + self._ffn_params()
-                      + 2 * self.d_model)
+        mixer = {"A": self._attn_params, "L": self._attn_params,
+                 "R": self._rglru_params, "M": self._mamba_params}
+        for t in self.layer_types():
+            total += mixer[t]() + 2 * self.d_model
+            if t != "M":           # a Mamba block has no separate FFN
+                total += self._ffn_params()
         return total
 
     def active_param_count(self) -> int:
@@ -226,4 +265,5 @@ class ModelConfig:
             return self.param_count()
         idle = (self.moe.n_experts - self.moe.top_k) * self._mlp_params(
             self.moe.expert_d_ff)
-        return self.param_count() - idle * len(self.layer_types())
+        return self.param_count() - idle * sum(
+            t != "M" for t in self.layer_types())

@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
 ``repro.configs.registry``).  Only the ported architectures are listed;
-the others come with their slices (ROADMAP §1)."""
+whisper-medium comes with its slice (ROADMAP §1 item 7)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ ARCHS = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
 }

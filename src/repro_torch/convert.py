@@ -6,7 +6,12 @@ numpy array (``{"embed": {"table"}, "unit": [stacked block dicts], "tail":
 heads), so this module needs no JAX.  Weights keep
 the reference's ``[d_in, d_out]`` orientation (the port computes ``x @ w``
 too, so nothing is transposed); the stacked ``unit`` axis splits into one
-:class:`repro_torch.models.lm.Block` per repetition.  bfloat16 leaves
+:class:`repro_torch.models.lm.Block` per repetition, whose parts are the
+reference block's (``attn``/``ffn``/``norm1``/``norm2``, ``rec`` for an
+RG-LRU block, ``mixer`` for a Mamba-2 block).  Every leaf must arrive in
+the port's dtype for it: the float32 leaves of a bf16 model (the MoE
+router, the RG-LRU gates and ``lam``, Mamba's ``a_log``, ``dt_bias`` and
+``d_skip``) stay float32.  bfloat16 leaves
 (numpy has no bfloat16; the reference hands over ``ml_dtypes`` arrays)
 cross as their 16-bit patterns and are viewed back as ``torch.bfloat16``.
 """
@@ -18,7 +23,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import LM, pattern_unit, with_draft
+from repro_torch.models.lm import LM, _block_parts, pattern_unit, with_draft
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -53,10 +58,10 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> LM:
         src = np_params["unit"][i]
         for r in range(reps):
             block = params.unit[i][r]
-            for part in ("norm1", "attn", "norm2", "ffn"):
+            for part in _block_parts(block):
                 _load(getattr(block, part), src[part], dev, rep=r)
     for i, block in enumerate(params.tail):
-        for part in ("norm1", "attn", "norm2", "ffn"):
+        for part in _block_parts(block):
             _load(getattr(block, part), np_params["tail"][i][part], dev)
     if "draft" in np_params:
         if params.draft is None:          # heads the config does not count

@@ -3,7 +3,9 @@
 bit).
 
 Tokens follow a fixed random bigram chain drawn from the seed, and a batch
-is a pure function of ``(seed, step, host)``.
+is a pure function of ``(seed, step, host)``.  A VLM config's batch also
+carries its modality stub: ``n_patches`` precomputed patch embeddings,
+drawn after the tokens, and ``seq - n_patches`` text tokens.
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ class SyntheticLM:
 
     def batch_at(self, step: int) -> dict:
         """The batch for a given global step (pure function — resumable)."""
-        if self.cfg.n_patches or self.cfg.family == "audio":
+        if self.cfg.family == "audio":
             raise NotImplementedError(
-                "VLM and audio modality stubs come with their slices")
+                "the audio modality stub comes with whisper's slice "
+                "(ROADMAP §1 item 7)")
         rng = np.random.RandomState(
             (self.seed * 1_000_003 + step) * 31 + self.host_id)
         v = self._v
@@ -47,7 +50,15 @@ class SyntheticLM:
         choices = rng.randint(0, self.branching, size=(b, s))
         for t in range(s):
             toks[:, t + 1] = self._table[toks[:, t], choices[:, t]]
-        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        out = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        if self.cfg.n_patches:
+            # n_patches stub patch embeddings + (s - n_patches) text tokens
+            text = s - self.cfg.n_patches
+            out["patch_embeds"] = rng.randn(
+                b, self.cfg.n_patches, self.cfg.d_model).astype(np.float32)
+            out["tokens"] = toks[:, :text]
+            out["targets"] = toks[:, 1:text + 1]
+        return out
 
     def __iter__(self) -> Iterator[dict]:
         step = 0

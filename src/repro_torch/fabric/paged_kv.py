@@ -237,7 +237,8 @@ class SwapRecord:
     ``frames`` holds each paged leaf's mapped frames as line-major CPU
     tensors (``[reps * span, Hkv, D]``, the exact bytes the read burst
     staged out); ``unpaged`` holds the slot's slices of the leaves the pool
-    does not back (ring windows), keyed as the reference keys them
+    does not back (ring windows, recurrent and SSM state), keyed as the
+    reference keys them
     (``"['unit'][0]['k']"``).  ``mapped`` is the physical page count to
     re-map on swap-in; ``used_pages`` / ``dirty`` restore the logical page
     table and the dense-splice counterfactual."""
@@ -257,8 +258,10 @@ class PagedKVCache:
     "v"}...], "tail": [...]}``.  With ``pool_pages > 0`` the
     ``paged_entries`` are pool leaves ``[reps, n_pages, page_size, Hkv,
     D]``; every other leaf (all of them in dense mode) is per slot, ``[reps,
-    max_slots, T, Hkv, D]`` (``[max_slots, T, Hkv, D]`` in the tail).  The
-    wrapper keeps that structure; admission writes into it in place."""
+    max_slots, ...]`` (``[max_slots, ...]`` in the tail): a K/V or ring
+    leaf ``[..., T, Hkv, D]``, a conv window ``[..., K-1, C]``, an RG-LRU
+    ``h`` ``[..., W]``, an SSM ``state`` ``[..., H, P, N]``.  The wrapper
+    keeps that structure; admission writes into it in place."""
 
     def __init__(self, caches, max_slots: int, t_max: int, page_size: int,
                  pool_pages: int = 0, paged_entries=(), fabric=None,
@@ -570,7 +573,8 @@ class PagedKVCache:
 
     def _extract_unpaged(self, slot: int) -> Dict[str, torch.Tensor]:
         """CPU copies of the slot's slices of the leaves the pool does not
-        back (ring windows) — the control-traffic half of the swap image."""
+        back (ring windows, recurrent and SSM state) — the control-traffic
+        half of the swap image."""
         return {key: leaf.narrow(axis, slot, 1).to("cpu", copy=True)
                 for key, leaf, axis in self._unpaged_leaves()}
 
@@ -583,8 +587,9 @@ class PagedKVCache:
 
     # -- install paths ---------------------------------------------------------
     def _splice_unpaged(self, slot: int, req_cache) -> None:
-        """Copy a request's non-paged leaves (its ring windows, batch 1)
-        into row ``slot`` of the engine's per-slot leaves, in place."""
+        """Copy a request's non-paged leaves (its ring windows and
+        recurrent or SSM state, batch 1) into row ``slot`` of the engine's
+        per-slot leaves, in place."""
         self._splice_rows(slot, req_cache, skip=set(self.paged_entries))
 
     def _dense_splice(self, slot: int, req_cache, span: int) -> None:
@@ -600,10 +605,12 @@ class PagedKVCache:
         """Copy ``req_cache``'s leaves (batch 1) into row ``slot`` of every
         entry not in ``skip``, in place.  The slot axis is the leaf's known
         one — 1 under the ``unit`` stack, 0 in the ``tail`` — not guessed
-        from the shape (the reference takes axis 1 whenever ``shape[1] ==
-        max_slots``, which misplaces a tail leaf whose time axis equals
-        ``max_slots``).  With ``span``, K/V leaves whose time axis is
-        ``t_max`` copy their first ``span`` timesteps only."""
+        from the shape (the reference takes axis 1 only when ``ndim >= 4
+        and shape[1] == max_slots``, which misplaces a tail leaf whose time
+        axis equals ``max_slots`` and every unit-stacked RG-LRU ``h``
+        ``[reps, B, W]``, which has three dims).  With ``span``, K/V leaves
+        whose time axis is ``t_max`` copy their first ``span`` timesteps
+        only."""
         for kind in ("unit", "tail"):
             axis = 1 if kind == "unit" else 0
             for i, entry in enumerate(self.caches[kind]):

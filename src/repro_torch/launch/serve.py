@@ -38,7 +38,13 @@ token stream, with the acceptance census).
 MoE models (``--arch granite-moe-3b-a800m``, ``--arch kimi-k2-1t-a32b``
 at ``--smoke`` only) dispatch and combine each MoE layer's tokens over the
 sparse bursts: one scatter and one gather kernel launch per layer per
-step and per prefill on the card.
+step and per prefill on the card.  A VLM (``--arch internvl2-1b``) puts
+its ``n_patches`` stub patch embeddings before the ``--prompt-len`` text
+tokens in one-shot mode (``t_max`` counts them); its engine serves the
+text alone, as the reference's.  The recurrent and SSM families
+(``--arch recurrentgemma-2b``, ``--arch mamba2-780m``) have no
+full-attention leaf, so their engine runs without a page pool (the dense
+per-slot layout, preemption off) and launches no burst.
 
 Prints throughput, the fabric census, the preemption, admission,
 MoE-dispatch and speculative-decode censuses (engine) and the kernel
@@ -58,7 +64,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.registry import SMOKE_ONLY
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels import medusa_transpose as mt
-from repro_torch.models import api
+from repro_torch.models import api, lm
 from repro_torch.serving import Request, ServingEngine
 
 
@@ -174,11 +180,13 @@ def main(argv=None):
         # the draft heads are model parameters: init_params draws them
         cfg = dataclasses.replace(cfg, spec_heads=args.spec_decode_k)
     fab = cfg.resolved_fabric
-    data = SyntheticLM(cfg, batch=args.batch, seq=args.prompt_len,
+    n_patches = cfg.n_patches or 0
+    data = SyntheticLM(cfg, batch=args.batch, seq=args.prompt_len + n_patches,
                        seed=args.seed)
-    prompts = data.batch_at(0)["tokens"]
+    batch = data.batch_at(0)
+    prompts = batch["tokens"]
     params = api.init_params(cfg, seed=args.seed, device=device)
-    t_max = args.prompt_len + args.gen_len
+    t_max = args.prompt_len + args.gen_len + n_patches
     print(f"arch={cfg.name} device={device} fabric=[impl={fab.impl} "
           f"N={fab.n_ports} W_acc={fab.lane_width} page={fab.page_size} "
           f"pack={fab.pack} fold={fab.word_fold}] batch={args.batch} "
@@ -187,8 +195,9 @@ def main(argv=None):
         prompt = torch.as_tensor(prompts, device=device)
         mt.reset_launch_counts()
         t0 = time.perf_counter()
+        extra = {"patch_embeds": batch["patch_embeds"]} if n_patches else {}
         out = api.greedy_generate(params, prompt, cfg, steps=args.gen_len,
-                                  t_max=t_max)
+                                  t_max=t_max, extra=extra)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
@@ -254,6 +263,9 @@ def main(argv=None):
     if fs.gather_fused_bursts:
         print(f"fused gather: {fs.words_live} live-frame words through "
               f"{fs.gather_fused_bursts} sparse-extent bursts")
+    elif not lm.paged_entries(cfg):
+        print("fused gather: off — no full-attention leaf to pool or bank; "
+              "the step decodes through the per-layer path")
     elif not eng.fabric.banks_kv:
         print("fused gather: off — the fabric banks no KV; the step decodes "
               "through the per-layer path")

@@ -1,5 +1,5 @@
-"""Models of the port: the decoder-only LM (dense or MoE) on the serving
-path."""
+"""Models of the port: the decoder-only LM (dense, MoE, VLM, RG-LRU hybrid
+and Mamba-2) on the serving path."""
 
 from repro_torch.models.api import (decode_fn, init_cache, init_params,
                                     prefill_fn)

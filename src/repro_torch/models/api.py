@@ -1,7 +1,9 @@
 """Unified model API (port of ``repro.models.api`` for the decoder-only
 serving path): ``init_params``, ``prefill_fn``, ``init_cache``,
-``decode_fn``, ``greedy_generate``.  Entry points run on ``cuda`` unless
-``device="cpu"`` is passed; they raise when no CUDA device is present."""
+``decode_fn``, ``greedy_generate``.  ``batch`` carries the VLM's modality
+stub, ``patch_embeds``, where the config has one.  Entry points run on
+``cuda`` unless ``device="cpu"`` is passed; they raise when no CUDA device
+is present."""
 
 from __future__ import annotations
 
@@ -22,9 +24,14 @@ def _kv_chunk_for(seq: int) -> int:
 
 def prefill_fn(params: lm.LM, batch: dict, cfg: ModelConfig, t_max: int):
     """Prefill ``batch["tokens"] [B, S]`` → ``(logits [B, 1, V], caches)``
-    with line-major caches of depth ``t_max``."""
+    with line-major caches of depth ``t_max``; ``batch["patch_embeds"]
+    [B, P, d]`` (an array or a tensor), when given to a VLM config, goes
+    before the text."""
     tokens = batch["tokens"]
-    return lm.prefill(params, tokens, cfg, t_max,
+    patches = batch.get("patch_embeds")
+    if patches is not None:
+        patches = torch.as_tensor(patches, device=tokens.device)
+    return lm.prefill(params, tokens, cfg, t_max, patch_embeds=patches,
                       kv_chunk=_kv_chunk_for(tokens.shape[1]))
 
 
@@ -50,19 +57,24 @@ def decode_fn(params: lm.LM, token, caches, pos, cfg: ModelConfig,
 
 
 def greedy_generate(params: lm.LM, prompt: torch.Tensor, cfg: ModelConfig,
-                    steps: int, t_max: int, on_step=None) -> torch.Tensor:
+                    steps: int, t_max: int, extra=None,
+                    on_step=None) -> torch.Tensor:
     """Greedy decoding through the per-layer decode path: prefill
-    ``prompt [B, S]``, feed back the argmax token, and return the
+    ``prompt [B, S]`` (with the batch entries ``extra``, e.g. a VLM's
+    ``patch_embeds``), feed back the argmax token, and return the
     ``steps`` tokens the decode steps choose, ``[B, steps]`` of the
     prompt's dtype (the prefill's own token is fed in, not returned, as
-    the reference).  ``on_step(i, logits)``, when given, sees every decode
-    step's logits.  Raises when the prompt plus ``steps`` does not fit in
-    ``t_max``."""
-    b, s = prompt.shape
+    the reference).  Decoding starts at position ``S + cfg.n_patches``, as
+    the reference's does.  ``on_step(i, logits)``, when given, sees every
+    decode step's logits.  Raises when those positions plus ``steps`` do
+    not fit in ``t_max``."""
+    b = prompt.shape[0]
+    s = prompt.shape[1] + (cfg.n_patches or 0)
     if s + steps > t_max:
-        raise ValueError(f"prompt of {s} tokens + {steps} decode steps does "
-                         f"not fit in t_max={t_max}")
-    logits, caches = prefill_fn(params, {"tokens": prompt}, cfg, t_max)
+        raise ValueError(f"prompt of {s} positions + {steps} decode steps "
+                         f"does not fit in t_max={t_max}")
+    logits, caches = prefill_fn(params, {"tokens": prompt, **(extra or {})},
+                                cfg, t_max)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(prompt.dtype)
     out = torch.zeros((b, steps), dtype=prompt.dtype, device=prompt.device)
     for i in range(steps):

@@ -31,6 +31,16 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
     return -(-v // multiple) * multiple
 
 
+def trunc_normal(generator: torch.Generator, shape, device,
+                 scale: float) -> torch.Tensor:
+    """A float32 draw from the standard normal truncated to [-2, 2], times
+    ``scale`` (the reference's ``trunc_normal``, from a torch generator)."""
+    draw = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
+                                generator=generator)
+    return draw * scale
+
+
 # ----------------------------------------------------------------------------
 # norms
 # ----------------------------------------------------------------------------
@@ -465,10 +475,8 @@ def draft_head_params(gen: torch.Generator, cfg, dtype, device) -> dict:
     Their logits come from the shared unembedding, so a head adds ``d²``
     parameters, not ``d·V``.  The numbers are not the reference's."""
     d = cfg.d_model
-    draw = torch.empty((cfg.spec_heads, d, d), dtype=torch.float32,
-                       device=device)
-    torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return {"w": (draw * (1.0 / math.sqrt(d))).to(dtype)}
+    return {"w": trunc_normal(gen, (cfg.spec_heads, d, d), device,
+                              1.0 / math.sqrt(d)).to(dtype)}
 
 
 def draft_logits(p_draft, x: torch.Tensor, p_embed, cfg) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""Decoder-only LM (port of ``repro.models.lm`` for full-attention ``A``
+"""Decoder-only LM (port of ``repro.models.lm``): full-attention ``A``
 and sliding-window ``L`` blocks, each with a dense MLP or, when
-``cfg.moe`` is set, the MoE FFN of :mod:`repro_torch.models.moe`):
-parameters, caches, prefill, the per-layer decode step (over dense caches
-or, gathered, over the page pool), the burst-scheduled decode step (with
-``serve_fsdp`` weight streaming), and the Medusa draft heads any decode
-step can append.
+``cfg.moe`` is set, the MoE FFN of :mod:`repro_torch.models.moe`; RG-LRU
+``R`` blocks (:mod:`repro_torch.models.rglru`) with the same FFN; and
+Mamba-2 ``M`` blocks (:mod:`repro_torch.models.mamba2`), a mixer with no
+FFN.  Parameters, caches, prefill (with a VLM's patch-embedding prefix),
+the per-layer decode step (over dense caches or, gathered, over the page
+pool), the burst-scheduled decode step (with ``serve_fsdp`` weight
+streaming), and the Medusa draft heads any decode step can append.
 
 Parameters are an :class:`LM` module: one :class:`Block` per layer
 (``LM.unit[i][r]`` is pattern position ``i`` of repetition ``r``, the
@@ -15,10 +17,13 @@ orientation (``x @ w``).  The layer scan is a Python loop.
 Caches keep the reference's tree layout, stacked over layers:
 ``{"unit": [{"k": [reps, ...], "v": ...}], "tail": [...]}`` — a paged pool
 leaf is ``[reps, n_pages, page_size, Hkv, D]``, a sliding-window layer's
-ring ``[reps, B, min(t_max, window), Hkv, D]`` — so the scheduler's
-streams, index tiling and counters match the reference one for one.  The
-decode steps write each new token's K/V into the caches in place (the
-reference returns new arrays); the returned tree holds the same leaves.
+ring ``[reps, B, min(t_max, window), Hkv, D]``, an ``R`` block's ``{"conv":
+[reps, B, K-1, W], "h": [reps, B, W]}``, an ``M`` block's ``{"conv": [reps,
+B, K-1, C], "state": [reps, B, H, P, N]}`` (``h`` and ``state`` float32 in
+any model dtype) — so the scheduler's streams, index tiling and counters
+match the reference one for one.  The decode steps write each new token's
+K/V and each new recurrent state into the caches in place (the reference
+returns new arrays); the returned tree holds the same leaves.
 """
 
 from __future__ import annotations
@@ -33,11 +38,10 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe, rglru
 
-_OTHER_FAMILIES = ("block types other than attention ('A', 'L') and the "
-                   "other families are ported in later slices (ROADMAP §1 "
-                   "item 7)")
+_ENCODER_DECODER = ("the encoder-decoder family (whisper) is ported in a "
+                    "later slice (ROADMAP §1 item 7)")
 
 
 def pattern_unit(cfg: ModelConfig):
@@ -48,10 +52,8 @@ def pattern_unit(cfg: ModelConfig):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family in ("audio", "ssm", "hybrid") or cfg.n_patches \
-            or cfg.encoder_layers \
-            or any(t not in ("A", "L") for t in cfg.layer_types()):
-        raise NotImplementedError(_OTHER_FAMILIES)
+    if cfg.family == "audio" or cfg.encoder_layers:
+        raise NotImplementedError(_ENCODER_DECODER)
 
 
 # ----------------------------------------------------------------------------
@@ -59,10 +61,18 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------------------
 
 def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
+    return _typed_params({name: (shape, dtype)
+                          for name, shape in shapes.items()}, device)
+
+
+def _typed_params(shapes: dict, device) -> nn.ParameterDict:
+    """``{name: (shape, dtype)}`` → uninitialised parameters, each leaf in
+    its own dtype (a float32 router, gate or state parameter in a bf16
+    model)."""
     return nn.ParameterDict({
-        name: nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+        name: nn.Parameter(torch.empty(shape, dtype=dt, device=device),
                            requires_grad=False)
-        for name, shape in shapes.items()})
+        for name, (shape, dt) in shapes.items()})
 
 
 def _norm(cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
@@ -73,31 +83,47 @@ def _norm(cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One attention decoder layer (``A`` or ``L``; the two have the same
-    parameters): pre-norm attention + MLP, or + the MoE FFN when
-    ``cfg.moe`` is set (its router in float32 whatever the model dtype)."""
+    """One decoder layer of type ``t``, pre-norm: attention (``A`` or
+    ``L``; the two have the same parameters, ``attn``) or the RG-LRU block
+    (``R``, ``rec``), then the MLP, or the MoE FFN when ``cfg.moe`` is set
+    (its router in float32 whatever the model dtype); or the Mamba-2 mixer
+    alone (``M``, ``mixer``: no ``norm2``, no FFN)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, t: str, cfg: ModelConfig, dtype, device):
         super().__init__()
         hd, d = cfg.resolved_head_dim, cfg.d_model
         self.norm1 = _norm(cfg, dtype, device)
-        self.attn = _params({"wq": (d, cfg.n_heads * hd),
-                             "wk": (d, cfg.n_kv_heads * hd),
-                             "wv": (d, cfg.n_kv_heads * hd),
-                             "wo": (cfg.n_heads * hd, d)}, dtype, device)
+        if t in ("A", "L"):
+            self.attn = _params({"wq": (d, cfg.n_heads * hd),
+                                 "wk": (d, cfg.n_kv_heads * hd),
+                                 "wv": (d, cfg.n_kv_heads * hd),
+                                 "wo": (cfg.n_heads * hd, d)}, dtype, device)
+        elif t == "R":
+            self.rec = _typed_params(rglru.rglru_param_shapes(cfg, dtype),
+                                     device)
+        elif t == "M":
+            self.mixer = _typed_params(
+                mamba2.mamba_param_shapes(cfg, dtype), device)
+            return
+        else:
+            raise ValueError(f"unknown block type {t!r}")
         self.norm2 = _norm(cfg, dtype, device)
         if cfg.moe is not None:
-            self.ffn = nn.ParameterDict({
-                name: nn.Parameter(torch.empty(shape, dtype=dt,
-                                               device=device),
-                                   requires_grad=False)
-                for name, (shape, dt) in moe.moe_param_shapes(
-                    cfg, dtype).items()})
+            self.ffn = _typed_params(moe.moe_param_shapes(cfg, dtype), device)
             return
         ffn = {"w_up": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
         if cfg.mlp in ("swiglu", "geglu"):
             ffn["w_gate"] = (d, cfg.d_ff)
         self.ffn = _params(ffn, dtype, device)
+
+
+def _block_parts(block) -> list:
+    """A block's parameter groups in the reference tree's sorted key order
+    (``attn, ffn, norm1, norm2``; ``ffn, norm1, norm2, rec``; ``mixer,
+    norm1``), of a :class:`Block` or of a decode step's copy of one."""
+    if isinstance(block, nn.Module):
+        return sorted(name for name, _ in block.named_children())
+    return sorted(vars(block))
 
 
 class LM(nn.Module):
@@ -114,9 +140,9 @@ class LM(nn.Module):
             embed["head"] = (cfg.d_model, cm.pad_vocab(cfg.vocab_size))
         self.embed = _params(embed, dtype, device)
         self.unit = nn.ModuleList(
-            nn.ModuleList(Block(cfg, dtype, device) for _ in range(reps))
-            for _ in (unit if reps > 0 else ""))
-        self.tail = nn.ModuleList(Block(cfg, dtype, device) for _ in tail)
+            nn.ModuleList(Block(t, cfg, dtype, device) for _ in range(reps))
+            for t in (unit if reps > 0 else ""))
+        self.tail = nn.ModuleList(Block(t, cfg, dtype, device) for t in tail)
         self.final_norm = _norm(cfg, dtype, device)
         # Medusa draft heads (``cfg.spec_heads``): {"w": [k, d, d]}, or None
         self.draft = (_params({"w": (cfg.spec_heads, cfg.d_model,
@@ -141,22 +167,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     """Random parameters on ``device`` from a seeded ``torch.Generator``:
     truncated normals scaled like the reference (``1/sqrt(d_in)`` for
     projections, ``1/sqrt(d_model)`` for the embedding), norms at their
-    identity; the draft heads (``cfg.spec_heads``) like a projection.  The
-    numbers are not the reference's ``jax.random`` draws."""
+    identity; the draft heads (``cfg.spec_heads``) like a projection; the
+    RG-LRU and Mamba-2 parts as :func:`repro_torch.models.rglru.
+    rglru_init_` and :func:`repro_torch.models.mamba2.mamba_init_` fill
+    them.  The numbers are not the reference's ``jax.random`` draws."""
     dev = resolve_device(device)
     params = LM(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    for block in params.modules():
+        if isinstance(block, Block) and hasattr(block, "rec"):
+            rglru.rglru_init_(block.rec, gen)
+        elif isinstance(block, Block) and hasattr(block, "mixer"):
+            mamba2.mamba_init_(block.mixer, gen)
     for name, p in params.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
+        part, leaf = name.split(".")[-2:]
+        if part in ("rec", "mixer"):
+            continue
         if leaf in ("scale", "bias"):
             p.fill_(1.0 if (leaf == "scale" and cfg.norm != "rms") else 0.0)
             continue
         # [V, d] table, [d_in, d_out] projections, [k, d_in, d_out] heads
         fan_in = p.shape[1] if leaf == "table" else p.shape[-2]
-        draw = torch.empty(p.shape, dtype=torch.float32, device=dev)
-        torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        p.copy_(draw * (1.0 / math.sqrt(fan_in)))
+        p.copy_(cm.trunc_normal(gen, p.shape, dev, 1.0 / math.sqrt(fan_in)))
     return params
 
 
@@ -172,8 +205,9 @@ def _layers(params: LM, cfg: ModelConfig):
 
 
 def _layer_cache(caches, kind: str, i: int, r) -> dict:
-    """One layer's ``{"k", "v"}`` cache: views into the stacked leaves (so
-    in-place writes land in the tree)."""
+    """One layer's cache (``{"k", "v"}``, ``{"conv", "h"}`` or ``{"conv",
+    "state"}``): views into the stacked leaves (so in-place writes land in
+    the tree)."""
     return {name: (leaf[r] if r is not None else leaf)
             for name, leaf in caches[kind][i].items()}
 
@@ -188,7 +222,8 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
     full-attention leaf is a shared physical page pool ``[pool_pages,
     page_size, Hkv, D]`` (stacked over the unit's repetitions) instead of a
     dense ``[batch, t_max]`` reservation.  Sliding-window layers keep a
-    per-slot ring ``[batch, min(t_max, window)]`` either way."""
+    per-slot ring ``[batch, min(t_max, window)]`` either way, and ``R`` and
+    ``M`` blocks their per-slot conv window and float32 state."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.param_dtype
@@ -196,6 +231,10 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
     unit, reps, tail = pattern_unit(cfg)
 
     def leaf(t, lead):
+        if t in ("R", "M"):
+            return {name: torch.zeros(lead + shape, dtype=dt, device=dev)
+                    for name, (shape, dt) in _state_shapes(
+                        t, cfg, batch, dtype).items()}
         if pool_pages and _full_attn(t, cfg):
             shape = (pool_pages, page_size, cfg.n_kv_heads, hd)
         else:
@@ -207,6 +246,20 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
 
     return {"unit": [leaf(t, (reps,)) for t in (unit if reps > 0 else "")],
             "tail": [leaf(t, ()) for t in tail]}
+
+
+def _state_shapes(t: str, cfg: ModelConfig, batch: int, dtype) -> dict:
+    """``{name: (shape, dtype)}`` of an ``R`` or ``M`` block's per-slot
+    decode state; the recurrent state is float32 whatever ``dtype``."""
+    if t == "R":
+        w = cfg.rglru.lru_width or cfg.d_model
+        return {"conv": ((batch, cfg.rglru.conv_width - 1, w), dtype),
+                "h": ((batch, w), torch.float32)}
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return {"conv": ((batch, s.conv_width - 1, d_in + 2 * s.d_state), dtype),
+            "state": ((batch, d_in // s.head_dim, s.head_dim, s.d_state),
+                      torch.float32)}
 
 
 def paged_entries(cfg: ModelConfig):
@@ -259,12 +312,27 @@ def _block_apply(t: str, bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
     """One layer of type ``t``.  With ``pm_cache`` (scheduled decode)
     attention runs on the layer's port-major cache from the step's read
     burst and updates it in place; with ``cache`` (per-layer decode, and
-    the ring layers of the scheduled step) it writes the new token into the
-    layer's line-major or ring cache in place and attends over it; without
-    either it attends over the current sequence (prefill) and returns the
-    new line-major K/V."""
+    the ring, recurrent and SSM layers of the scheduled step) it writes the
+    new token into the layer's line-major or ring cache in place and
+    attends over it, or steps the recurrent state and writes it back in
+    place; without either it runs over the current sequence (prefill) and
+    returns the new line-major K/V, or the state the decode goes on from
+    (the reference's ``_recover_rec_state``)."""
     h = cm.apply_norm(x, bp.norm1, cfg.norm)
-    if pm_cache is not None:
+    if t in ("R", "M"):
+        apply, state = ((rglru.rglru_apply, rglru.final_state) if t == "R"
+                        else (mamba2.mamba_apply, mamba2.final_state))
+        p = bp.rec if t == "R" else bp.mixer
+        out, new_state = apply(p, h, cfg, cache)
+        if cache is None:
+            new_state = state(p, h, cfg)
+        else:
+            for name, leaf in new_state.items():
+                cache[name].copy_(leaf)
+        if t == "M":                      # a Mamba block: the mixer only
+            return x + out, new_state
+        h, new_kv = out, new_state
+    elif pm_cache is not None:
         qpos = pos[None] if pos.ndim == 0 else pos[:, None]
         h, new_kv = cm.attention_apply_banked(
             bp.attn, h, cfg, positions=qpos, layer_kind=t,
@@ -612,10 +680,6 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
     return _emit_logits(params, x, cfg, draft), new_caches
 
 
-# The block's parameter groups in the reference tree's sorted key order.
-_PARTS = ("attn", "ffn", "norm1", "norm2")
-
-
 def _weight_slots(params):
     """The reference's parameter leaves in its ``tree_flatten`` order (dict
     keys sorted: ``draft`` when there are draft heads, ``embed``,
@@ -633,12 +697,12 @@ def _weight_slots(params):
         for name in sorted(pdict.keys()):
             yield [(pdict, name)]
     for block in params.tail:
-        for part in _PARTS:
+        for part in _block_parts(block):
             pdict = getattr(block, part)
             for name in sorted(pdict.keys()):
                 yield [(pdict, name)]
     for blocks in params.unit:
-        for part in _PARTS:
+        for part in _block_parts(blocks[0]):
             for name in sorted(getattr(blocks[0], part).keys()):
                 yield [(getattr(b, part), name) for b in blocks]
 
@@ -670,7 +734,7 @@ def _rebuild_weight_stream(params: LM, moved, streamed):
     ``params``' structure that the decode path reads as an :class:`LM`."""
     def copy(block):
         return types.SimpleNamespace(**{part: dict(getattr(block, part))
-                                        for part in _PARTS})
+                                        for part in _block_parts(block)})
     heads = getattr(params, "draft", None)
     out = types.SimpleNamespace(
         draft=None if heads is None else dict(heads),
@@ -689,20 +753,29 @@ def _rebuild_weight_stream(params: LM, moved, streamed):
 
 
 def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig, t_max: int,
-            kv_chunk: int = 0):
+            patch_embeds=None, kv_chunk: int = 0):
     """Prefill: the forward pass that also installs line-major KV caches
     ``[reps, B, t_max, Hkv, D]``; a ring shorter than the prompt takes its
-    last ``W`` positions, rolled so position ``p`` sits at slot ``p % W``.
-    Returns ``(logits [B, 1, V], caches)`` with the logits of the last
-    position."""
-    b, s = tokens.shape
+    last ``W`` positions, rolled so position ``p`` sits at slot ``p % W``;
+    an ``R`` or ``M`` block installs its conv window and final state.  A
+    VLM config (``cfg.n_patches``) given ``patch_embeds [B, P, d]`` puts
+    them before the text's embeddings, in the model dtype; positions run
+    over both.  Returns ``(logits [B, 1, V], caches)`` with the logits of
+    the last position."""
+    b = tokens.shape[0]
     caches = init_cache(cfg, b, t_max, device=tokens.device)
     x = cm.embed_apply(params.embed, tokens)
+    if cfg.n_patches and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    s = x.shape[1]
     positions = torch.arange(s, device=tokens.device)
     for t, kind, i, r, block in _layers(params, cfg):
         x, kv = _block_apply(t, block, x, cfg, positions=positions,
                              kv_chunk=kv_chunk)
         for name, leaf in _layer_cache(caches, kind, i, r).items():
+            if t in ("R", "M"):
+                leaf.copy_(kv[name])
+                continue
             length = leaf.shape[1]
             if length >= s:
                 leaf[:, :s] = kv[name]

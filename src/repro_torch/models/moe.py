@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.fabric.fabric import Fabric
 from repro_torch.fabric.scheduler import (BurstScheduler, FRAME_SENTINEL,
                                           SchedulerStats)
+from repro_torch.models import common as cm
 
 #: the ambient stats sink of :func:`dispatch_stats`, and its drop counts
 #: not yet folded (device tensors)
@@ -81,13 +82,9 @@ def moe_params(cfg, dtype, generator: torch.Generator, device) -> dict:
     """Random MoE parameters (:func:`moe_param_shapes`) from
     ``generator``: truncated normals over ``1/sqrt(d_in)``, as
     :func:`repro_torch.models.lm.init_params` draws a projection."""
-    out = {}
-    for name, (shape, dt) in moe_param_shapes(cfg, dtype).items():
-        draw = torch.empty(shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
-                                    generator=generator)
-        out[name] = (draw * shape[-2] ** -0.5).to(dt)
-    return out
+    return {name: cm.trunc_normal(generator, shape, device,
+                                  shape[-2] ** -0.5).to(dt)
+            for name, (shape, dt) in moe_param_shapes(cfg, dtype).items()}
 
 
 def _count_dropped(stats: Optional[SchedulerStats],

@@ -20,7 +20,14 @@ A sliding-window layer (gemma3's
 ``L``) keeps a per-slot ring of its last ``W`` positions on the device
 instead: admission copies the request's ring into its slot's row, the step
 writes and attends it line-major at each slot's own position, and a
-retired slot's row is simply overwritten by the next admission.
+retired slot's row is simply overwritten by the next admission.  The
+recurrent and SSM blocks (recurrentgemma's ``R``, mamba2's ``M``) keep
+their conv windows and float32 states per slot the same way.  A family
+with no full-attention leaf (recurrentgemma-2b, mamba2-780m) has nothing
+to pool: it serves from the dense per-slot layout, its decode step takes
+the per-layer path (no burst, no kernel), and preemption is off, as in
+the reference.  The engine serves text prompts; a VLM's patch prefix is
+the one-shot path's (:func:`repro_torch.models.api.greedy_generate`).
 
 Under the fused-gather contract (``fused_gather``, on by default) the step
 plans its live frames on the host (:func:`repro_torch.models.common.
@@ -159,15 +166,12 @@ class ServingEngine:
         self.t_alloc = -(-t_max // n) * n
         ps = page_size or min(fab_cfg.page_size, self.t_alloc)
         self.page_size = ps
-        entries = lm.paged_entries(cfg)
-        if not entries:
-            raise NotImplementedError(
-                f"families without full-attention leaves "
-                f"{_LATER.format(7)}")
         # shared physical page pool (the default) or the dense per-slot
-        # reservation
+        # reservation; a family without full-attention leaves (recurrent,
+        # SSM, or ring-only) has nothing to pool
+        entries = lm.paged_entries(cfg)
         self.paged = (fab_cfg.paged_pool if paged_pool is None
-                      else paged_pool)
+                      else paged_pool) and bool(entries)
         if self.paged:
             pages_per_slot = -(-self.t_alloc // ps)
             pool_pages = pool_pages or max_slots * pages_per_slot

@@ -130,10 +130,12 @@ def test_engine_matches_reference_in_lockstep(fused, monkeypatch):
 
 def test_engine_refuses_paths_of_later_slices():
     """The refusals that remain: the sharded pool (ROADMAP §1 item 8) and
-    the other families (item 7).  What items 4 and 6 brought — speculative
-    decode (and ``spec_heads``), aging, the bounded queue, fault injection,
-    SLO deadlines and the MoE family — now constructs and runs on the
-    CPU."""
+    the encoder-decoder family (item 7, whisper).  What items 4, 6 and
+    7.1-7.3 brought — speculative decode (and ``spec_heads``), aging, the
+    bounded queue, fault injection, SLO deadlines, the MoE family, and the
+    families without a full-attention leaf (a ring-only stack, the SSM
+    family), which build without a pool and with preemption off, as the
+    reference's — now constructs and runs on the CPU."""
     tcfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
     from repro_torch.models import api
     from repro_torch.runtime import FaultInjector
@@ -142,12 +144,20 @@ def test_engine_refuses_paths_of_later_slices():
         ServingEngine(tcfg, params, max_slots=2, t_max=16, pool_shards=2)
     ring_only = dataclasses.replace(tcfg, block_pattern=("L",),
                                     sliding_window=8)
+    mamba = dataclasses.replace(get_smoke("mamba2-780m"), dtype="float32")
+    for cfg in (ring_only, mamba):
+        eng = ServingEngine(cfg, api.init_params(cfg, device="cpu"),
+                            max_slots=2, t_max=16)
+        assert not eng.paged and eng.preempt == "off"
+        assert eng.kv.pool is None
+    assert api.init_params(dataclasses.replace(tcfg, family="ssm"),
+                           device="cpu").unit[0][0].attn is not None
     with pytest.raises(NotImplementedError, match="item 7"):
-        ServingEngine(ring_only, api.init_params(ring_only, device="cpu"),
-                      max_slots=2, t_max=16)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        api.init_params(dataclasses.replace(tcfg, family="ssm"),
+        api.init_params(dataclasses.replace(tcfg, family="audio"),
                         device="cpu")
+    with pytest.raises(ValueError, match="decoder-only"):
+        ServingEngine(dataclasses.replace(tcfg, family="audio"), params,
+                      max_slots=2, t_max=16)
     granite = get_smoke("granite-moe-3b-a800m")
     assert ServingEngine(granite, api.init_params(granite, device="cpu"),
                          max_slots=2, t_max=16).kv.paged
