@@ -118,7 +118,31 @@ Phases (any fault exits non-zero):
    ``internvl2-1b engine``, ``internvl2-1b one-shot``,
    ``recurrentgemma-2b one-shot``); the three float32 smokes card vs CPU
    (tokens and counters exact, logits and every cache leaf within 1e-4);
-13. loadgen — the traffic harness at full width: a seeded trace (16
+13. train — training on the card: full-width stablelm-1.6b through
+   ``repro_torch.launch.train.main`` (8 steps of 8 x 64 tokens, remat on,
+   no checkpoint written; finite losses, median step, tokens/s, peak
+   memory); the CLI's fault path (12 steps, a checkpoint every 4, a
+   failure at step 6, the depth cut to 2 layers) restarting once, and one
+   state's save and in-place restore timed; full-width
+   granite-moe-3b-a800m's loss and gradients at 2 x 64 (every expert
+   weight's gradient non-zero; kernels 1-2 exactly once per MoE layer in
+   the forward, once more where remat recomputes the block and once as
+   the adjoint in the backward), kernels 1-2 held and timed at the
+   backward's recorded operands (path ``granite-moe-3b-a800m train
+   backward``), then 2 train steps with the same launches; the six
+   trained families' float32 smokes, loss and every gradient card vs CPU
+   within 1e-4;
+14. whisper — full-width whisper-medium (24 + 24 layers, random bf16
+   weights from seed 0): the one-shot of 2 rows of the data stub's 1500
+   frames and 64 tokens, 32 decode steps, kernel 4 exactly 48 launches at
+   prefill and 48 a step, tokens and every step's logits bit-identical
+   with the kernels off and on the crossbar; its loss and gradients at 2
+   x 64 with the kernels on (48 forward and 48 backward launches) and
+   off, within 1e-2; 3 train steps; kernel 4 held and timed at the cross
+   K/V leaf, the self cache leaf and a gradient recorded in the backward
+   (paths ``whisper-medium prefill``, ``decode``, ``train``, ``train
+   backward``);
+15. loadgen — the traffic harness at full width: a seeded trace (16
    requests, diurnal arrivals with bursts, lognormal prompts of 16-448 and
    generations of 4-64 tokens, three priority classes, a quarter with SLO
    deadlines) replayed through stablelm-1.6b by ``repro_torch.launch.
@@ -133,13 +157,13 @@ Phases (any fault exits non-zero):
    held and timed at one decode step's operands (path ``loadgen:
    stablelm-1.6b``); then the paper's burst simulator on the card, one
    line in the constant N cycles, its pop bit-equal to the CPU's;
-14. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
+16. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
    float32 agree between the card and the CPU within 1e-4 (engine step;
    gemma3 one-shot), granite-moe's tokens and every ``SchedulerStats``
    field exactly; the stablelm smoke through the reference's churn trace
    (swap, recompute, swap with faults): tokens, ``SchedulerStats`` and the
    pool state equal, cache bytes within 1e-4;
-15. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+17. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
    bytes or by operations, at that path's shapes; a matmul's entry also
    names its route; the swap streams' entries are the paths ``swap:
@@ -147,8 +171,9 @@ Phases (any fault exits non-zero):
    line again, and the ``{"ok": true, ...}`` line last.
 
 ``--profile`` adds ``torch.profiler`` censuses (after the launch counts
-are read) of the stablelm engine's fused decode steps and of gemma3-4b's
-one-shot decode steps with the layout-engine kernel on and off in turns:
+are read) of the stablelm engine's fused decode steps, of gemma3-4b's
+one-shot decode steps with the layout-engine kernel on and off in turns,
+and of stablelm-1.6b's and whisper-medium's train steps:
 the device's busy share of each profiled window and the device time by
 kernel, printed and written in full to ``chiprun_out/profile_*.txt``.
 """
@@ -268,6 +293,27 @@ RG_ARCH, RG_PROMPT = "recurrentgemma-2b", 3072
 SSM_ARCH, SSM_PROMPT = "mamba2-780m", 1000
 FAMILY_GEN = 32
 VLM_ONE_SHOT, RG_ONE_SHOT = f"{VLM_ARCH} one-shot", f"{RG_ARCH} one-shot"
+# the train phase: stablelm-1.6b's full-width steps, batch and sequence;
+# the fault path's steps, failure step, checkpoint interval and cut depth;
+# granite-moe-3b-a800m's train steps and batch (sequence TRAIN_SEQ), and
+# the kernels line's path of its backward bursts; the float32 smokes held
+# card against CPU
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "stablelm-1.6b", 8, 8, 64
+FAULT_STEPS, FAULT_AT, FAULT_EVERY, FAULT_LAYERS = 12, 6, 4, 2
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 2
+MOE_TRAIN = f"{MOE_ARCH} train backward"
+# the whisper phase: whisper-medium's one-shot batch, prompt and generated
+# tokens, its train steps (batch WHISPER_BATCH, sequence TRAIN_SEQ), and
+# the kernels line's paths of kernel 4
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = (
+    "whisper-medium", 2, 64, 32)
+WHISPER_TRAIN_STEPS = 3
+WHISPER_PREFILL, WHISPER_DECODE = (f"{WHISPER_ARCH} prefill",
+                                   f"{WHISPER_ARCH} decode")
+WHISPER_TRAIN, WHISPER_BACKWARD = (f"{WHISPER_ARCH} train",
+                                   f"{WHISPER_ARCH} train backward")
+TRAIN_SMOKES = ("stablelm-1.6b", MOE_ARCH, VLM_ARCH, RG_ARCH, SSM_ARCH,
+                WHISPER_ARCH)
 
 
 def fail(msg: str) -> None:
@@ -711,9 +757,18 @@ def leaf_row(torch, words, shape, flush, what: str) -> dict:
     """Kernel 4 at one served K/V leaf ``shape`` (bf16): held bit for bit
     against its plain version and a second launch, then timed out of a
     flushed L2 beside the plain version and one library call."""
+    return tensor_row(torch, words(shape, torch.int16).view(torch.bfloat16),
+                      flush, what)
+
+
+def tensor_row(torch, x, flush, what: str) -> dict:
+    """Kernel 4 on the bf16 tensor ``x`` (a served leaf, or a gradient
+    recorded in a backward): held bit for bit against its plain version
+    and a second launch, then timed out of a flushed L2 beside the plain
+    version and one library call."""
     from repro_torch.kernels import medusa_transpose as mt
 
-    x = words(shape, torch.int16).view(torch.bfloat16)
+    shape = tuple(x.shape)
     got = mt.medusa_transpose_tiles(x)
     err = words_equal(torch, got, mt.medusa_transpose_plain(x),
                       f"transpose ({what})")
@@ -2166,22 +2221,27 @@ def preempt_phase(torch, dev, rows) -> None:
 
 
 @contextlib.contextmanager
-def burst_operands(seen: dict):
+def burst_operands(seen: dict, backward: bool = False):
     """While open, record into ``seen`` (cloned) the operands of the first
     gather and the first scatter that reach kernels 1-2 through
     ``kernels.ops``, as the scheduler passes them (bf16 pairs folded into
-    int32 words)."""
+    int32 words); with ``backward``, of the first made inside an autograd
+    backward (the adjoint bursts)."""
+    from repro_torch.kernels import launch as kl
     from repro_torch.kernels import ops
 
     gather, scatter = ops.burst_gather_read, ops.burst_scatter_write
 
+    def wanted(name):
+        return name not in seen and (not backward or kl._IN_BACKWARD[0])
+
     def gather_spy(lines, idx, n):
-        if "gather" not in seen:
+        if wanted("gather"):
             seen["gather"] = (lines.clone(), idx.clone(), n)
         return gather(lines, idx, n)
 
     def scatter_spy(banked, idx, into, n):
-        if "scatter" not in seen:
+        if wanted("scatter"):
             seen["scatter"] = (banked.clone(), idx.clone(), into.clone(), n)
         return scatter(banked, idx, into, n)
     ops.burst_gather_read, ops.burst_scatter_write = gather_spy, scatter_spy
@@ -3075,6 +3135,474 @@ def churn_card_vs_cpu(torch, dev) -> None:
               f"{len(a['leaves'])} leaves bit-equal", flush=True)
 
 
+@contextlib.contextmanager
+def transpose_operands(seen: dict):
+    """While open, record into ``seen["backward"]`` (cloned) the input of
+    the first layout-engine launch made inside an autograd backward (a
+    gradient on its way back through kernel 4)."""
+    from repro_torch.kernels import launch as kl
+    from repro_torch.kernels import medusa_transpose as mt
+
+    orig = mt.medusa_transpose_tiles
+
+    def spy(x):
+        if kl._IN_BACKWARD[0] and "backward" not in seen:
+            seen["backward"] = x.clone()
+        return orig(x)
+    mt.medusa_transpose_tiles = spy
+    try:
+        yield seen
+    finally:
+        mt.medusa_transpose_tiles = orig
+
+
+def run_train_cli(torch, args):
+    """``repro_torch.launch.train.main(args)``, its standard output echoed;
+    returns ``(state, runner, history, output)``."""
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state, runner, history = train.main(args)
+    torch.cuda.synchronize()
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return state, runner, history, out
+
+
+def loss_and_grads(torch, params, batch, cfg):
+    """``api.loss_fn`` and the gradient of every parameter (in
+    ``param_list`` order), the parameters set to require grad."""
+    from repro_torch.convert import param_list
+    from repro_torch.models import api
+
+    ps = param_list(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss = api.loss_fn(params, batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss, ps)
+
+
+def on_card(torch, batch, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def run_steps(torch, cfg, params, data, steps: int, label: str):
+    """``steps`` steps of ``build_train_step`` (batch and sequence of
+    ``data``, the AdamW state fresh), launch counts reset before; checks
+    every loss is finite; returns the launch counts, the backward launch
+    counts, the median step and the losses."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import init_opt_state
+
+    tcfg = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=steps,
+                       grad_accum=1)
+    step = build_train_step(cfg, ShapeConfig(label, data.seq, data.batch,
+                                             "train"), tcfg).fn
+    state = {"params": params,
+             "opt": init_opt_state(params, tcfg, master=False)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, data.batch_at(i))
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts, back = mt.launch_counts(), mt.backward_launch_counts()
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss {losses}")
+    print(f"{label}: {steps} steps of {data.batch} x {data.seq}, losses "
+          f"{[round(x, 4) for x in losses]}, median step "
+          f"{statistics.median(times) * 1e3:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches {dict((k, v) for k, v in counts.items() if v) or 'none'}"
+          f" of which in the backward "
+          f"{dict((k, v) for k, v in back.items() if v) or 'none'}",
+          flush=True)
+    del state
+    return counts, back, statistics.median(times), losses
+
+
+def profile_train(torch, cfg, params, data, label: str,
+                  out_name: str) -> None:
+    """The census (:func:`census`) of ``build_train_step``'s steps on
+    ``data``'s batches (the AdamW state fresh)."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import init_opt_state
+
+    tcfg = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=100,
+                       grad_accum=1)
+    step = build_train_step(cfg, ShapeConfig(label, data.seq, data.batch,
+                                             "train"), tcfg).fn
+    state = {"params": params,
+             "opt": init_opt_state(params, tcfg, master=False)}
+    batches = [data.batch_at(i) for i in range(2)]
+    calls = [0]
+
+    def one():
+        step(state, batches[calls[0] % 2])
+        calls[0] += 1
+    census(torch, label, one, out_name)
+    del state
+
+
+def train_phase(torch, dev, rows, with_profile: bool = False) -> None:
+    """Training on the card.  (a) stablelm-1.6b at full width and depth
+    (24 layers, d_model 2048, vocab 100352; random bf16 weights from the
+    CLI's seed) through ``repro_torch.launch.train.main``: 8 steps of 8 x
+    64 tokens, remat on, no checkpoint written; every loss finite, the
+    median step, tokens/s and the peak memory; no movement kernel runs on
+    a dense model's step.  (b) The fault path through the same CLI at the
+    same widths, the depth cut to 2 layers (a full-depth state is ~17 GB
+    of npz): 12 steps, a checkpoint every 4, a failure injected at step 6;
+    it must restart once and finish at step 12, the replayed step 5 giving
+    its first loss; then the state's save and in-place restore, timed.
+    (c) granite-moe-3b-a800m at full width and depth: one loss and its
+    gradients at 2 x 64 — every expert weight's gradient non-zero, the
+    bursts launched exactly once per MoE layer in the forward, again in
+    the rematerialised forward and once (the adjoint) in the backward —
+    kernels 1-2 held bit for bit and timed at the backward's recorded
+    operands (path ``granite-moe-3b-a800m train backward``); then 2 train
+    steps with the same launches per step.  (d) The six float32 smokes'
+    loss and every gradient, card against CPU."""
+    import shutil
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.convert import param_list, reference_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import medusa_transpose as mt
+
+    t_phase = time.perf_counter()
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = get_config(TRAIN_ARCH)
+    common = ["--arch", TRAIN_ARCH, "--device", "cuda", "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir",
+              str(ckpt_dir), "--log-every", "1"]
+
+    # -- (a) stablelm-1.6b at full width --------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    state, runner, history, out = run_train_cli(
+        torch, common + ["--steps", str(TRAIN_STEPS), "--ckpt-every",
+                         str(10 ** 6)])
+    counts = mt.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(loss) for _, _, loss in history]
+    check(f"done at step {TRAIN_STEPS}; restarts=0" in out
+          and len(losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses),
+          f"train {TRAIN_ARCH}: {out[-300:]}")
+    check(counts == ZERO_LAUNCHES, f"train {TRAIN_ARCH}: launches {counts}")
+    check(not ckpt_dir.exists(), f"train {TRAIN_ARCH} wrote a checkpoint")
+    if with_profile:
+        profile_train(torch, cfg, state["params"],
+                      SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+                      f"{TRAIN_ARCH} train step", "train_stablelm")
+    times = [b[1] - a[1] for a, b in zip(history, history[1:])]
+    med = statistics.median(times)
+    print(f"train {TRAIN_ARCH} full width ({cfg.param_count()} params, "
+          f"bf16, remat {cfg.remat}): {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, losses {[round(x, 4) for x in losses]}; median "
+          f"step (steps 2-{TRAIN_STEPS}) {med * 1e3:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; peak memory "
+          f"{peak:.2f} GiB; {card_line()}", flush=True)
+    del state, runner, history
+    free_model(torch, f"train {TRAIN_ARCH}")
+
+    # -- (b) the fault path, depth cut to FAULT_LAYERS ----------------------
+    t0 = time.perf_counter()
+    state, runner, history, out = run_train_cli(
+        torch, common + ["--layers", str(FAULT_LAYERS), "--steps",
+                         str(FAULT_STEPS), "--ckpt-every", str(FAULT_EVERY),
+                         "--fail-at", str(FAULT_AT)])
+    wall = time.perf_counter() - t0
+    check(f"done at step {FAULT_STEPS}" in out and "restarts=1" in out,
+          f"train fault path: {out[-300:]}")
+    seq = [h[0] for h in history]
+    last = FAULT_AT // FAULT_EVERY * FAULT_EVERY
+    check(seq == list(range(1, FAULT_AT + 1))
+          + list(range(last + 1, FAULT_STEPS + 1)),
+          f"train fault path: steps {seq}")
+    first, again = float(history[last][2]), float(history[FAULT_AT][2])
+    check(abs(first - again) <= 1e-6 * abs(first),
+          f"train fault path: step {last + 1} replayed to loss {again}, "
+          f"not {first}")
+    ps = param_list(state["params"])
+    kept = ps[0].detach().clone()
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(ckpt_dir), 10 ** 6, state,
+                           {"data_step": FAULT_STEPS})
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    with torch.no_grad():
+        ps[0].zero_()
+    t0 = time.perf_counter()
+    restore_checkpoint(str(ckpt_dir), 10 ** 6, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(torch.equal(ps[0], kept), "train fault path: the restore did not "
+          "put the saved parameters back")
+    print(f"train fault path ({TRAIN_ARCH}, depth cut to {FAULT_LAYERS} "
+          f"layers): {FAULT_STEPS} steps, checkpoint every {FAULT_EVERY}, "
+          f"failure at step {FAULT_AT}: restarts=1, done at step "
+          f"{FAULT_STEPS}, step {last + 1} replayed to the same loss, "
+          f"{wall:.1f}s wall; one state ({size / 2 ** 30:.2f} GiB of npz) "
+          f"saved in {save_s:.2f}s and restored in place in "
+          f"{restore_s:.2f}s", flush=True)
+    del state, runner, history, ps, kept
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_model(torch, "train fault path")
+
+    # -- (c) granite-moe-3b-a800m at full width --------------------------
+    cfg, params = load_model(torch, dev, MOE_ARCH)
+    n = cfg.n_layers
+    data = SyntheticLM(cfg, batch=MOE_TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    seen = {}
+    mt.reset_launch_counts()
+    with burst_operands(seen, backward=True):
+        loss, grads = loss_and_grads(torch, params,
+                                     on_card(torch, data.batch_at(0), dev),
+                                     cfg)
+    torch.cuda.synchronize()
+    counts, back = mt.launch_counts(), mt.backward_launch_counts()
+    bursts = ("gather_burst_network_tiles", "scatter_burst_network_tiles")
+    # per kernel and MoE layer: the forward, the rematerialised forward,
+    # the adjoint in the backward
+    per = 3 if cfg.remat != "none" else 2
+    check(counts == {**ZERO_LAUNCHES, **dict.fromkeys(bursts, per * n)}
+          and back == {**ZERO_LAUNCHES, **dict.fromkeys(bursts, n)},
+          f"train {MOE_ARCH}: launches {counts}, backward {back}; want "
+          f"{per} and 1 per kernel per MoE layer")
+    check(math.isfinite(float(loss)), f"train {MOE_ARCH}: loss {loss}")
+    k = 0
+    zero = []
+    for path, ts, _ in reference_leaves(params):
+        for g in grads[k:k + len(ts)]:
+            if path[-1] in ("w_gate", "w_up", "w_out") and not bool(
+                    g.ne(0).any()):
+                zero.append(path)
+        k += len(ts)
+    check(not zero, f"train {MOE_ARCH}: zero expert gradients at {zero}")
+    print(f"train {MOE_ARCH} full width: loss {float(loss):.4f}; every "
+          f"expert weight's gradient non-zero; kernels 1-2 {per * n} "
+          f"launches each per step ({n} in the forward, "
+          f"{(per - 2) * n} where remat (={cfg.remat}) recomputes the "
+          f"blocks, {n} the adjoints in the backward)", flush=True)
+    del grads
+    counts, back, _, _ = run_steps(torch, cfg, params, data, MOE_TRAIN_STEPS,
+                                   f"train {MOE_ARCH} steps")
+    s = MOE_TRAIN_STEPS
+    check(counts == {**ZERO_LAUNCHES, **dict.fromkeys(bursts, per * n * s)}
+          and back == {**ZERO_LAUNCHES, **dict.fromkeys(bursts, n * s)},
+          f"train {MOE_ARCH} steps: launches {counts}, backward {back}")
+    del params
+    free_model(torch, MOE_ARCH)
+
+    # kernels 1-2 at the backward's recorded operands; the kernels line
+    # counts the train steps' backward launches
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+
+    def words(shape, dtype=torch.int32):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(dtype)
+    rows[MOE_TRAIN] = burst_step_rows(torch, words, seen, MOE_TRAIN, False,
+                                      rows_what="assignment gradient rows",
+                                      slots_what="expert-slot gradients")
+    del seen
+    for name, r in rows[MOE_TRAIN].items():
+        r["launches"] = back[name]
+        set_bound(r)
+        print_row(name, MOE_TRAIN, r)
+
+    train_card_vs_cpu(torch, dev)
+    print(f"train phase: {time.perf_counter() - t_phase:.1f}s wall; "
+          f"{card_line()}", flush=True)
+
+
+def train_card_vs_cpu(torch, dev) -> None:
+    """The six trained families' smoke configs in float32, the same
+    parameters and batch on the card and on the CPU: the loss and every
+    gradient within 1e-4."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import api
+
+    for arch in TRAIN_SMOKES:
+        small = dataclasses.replace(get_smoke(arch), dtype="float32")
+        batch = SyntheticLM(small, batch=2, seq=16, seed=1).batch_at(0)
+        out = {}
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            params = api.init_params(small, seed=1, device="cpu").to(device)
+            loss, grads = loss_and_grads(torch, params,
+                                         on_card(torch, batch, device), small)
+            out[name] = (float(loss), [g.cpu() for g in grads])
+        (la, ga), (lc, gc) = out["gpu"], out["cpu"]
+        errs = [float((a - c).abs().max()) for a, c in zip(ga, gc)]
+        check(abs(la - lc) <= 1e-4 and all(
+            torch.allclose(a, c, atol=1e-4, rtol=1e-4)
+            for a, c in zip(ga, gc)),
+            f"{arch} smoke: card vs CPU loss {la} vs {lc}, gradients differ "
+            f"by up to {max(errs)}")
+        print(f"smoke {arch} float32 train card vs CPU: loss {la:.6f} vs "
+              f"{lc:.6f}, all {len(ga)} gradients within 1e-4 (max abs diff "
+              f"{max(errs):.2e})", flush=True)
+
+
+def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
+    """whisper-medium at full width and depth (24 encoder + 24 decoder
+    layers, d_model 1024, 16 KV heads = N ports of 64 lanes; random bf16
+    weights from seed 0).  (a) The one-shot: 2 rows of the data stub's
+    1500 frames and 64 tokens, 32 decode steps; kernel 4 exactly 48
+    launches at prefill (each decoder layer's cross K and V made
+    port-major) and 48 a decode step (the self-attention cache read); the
+    tokens and every step's logits bit-identical with the kernels off and
+    on the crossbar fabric.  (b) Training at 2 x 64: one loss and its
+    gradients with the kernels on (48 forward and 48 backward kernel-4
+    launches) and off, within 1e-2 of each other (bf16); then 3 train
+    steps, 48 forward and 48 backward launches each.  (c) Kernel 4 held
+    and timed at the cross K/V leaf, the self cache leaf and a gradient
+    recorded in the backward (paths ``whisper-medium prefill``,
+    ``decode``, ``train``, ``train backward``)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    cfg, params = load_model(torch, dev, WHISPER_ARCH)
+    b, s, g = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN
+    per = 2 * cfg.n_layers
+    kernel4 = "medusa_transpose_tiles"
+    batch = SyntheticLM(cfg, batch=b, seq=s, seed=0).batch_at(0)
+    check(batch["frames"].shape == (b, cfg.encoder_seq, cfg.d_model),
+          f"{WHISPER_ARCH}: the data stub gave frames "
+          f"{batch['frames'].shape}")
+    prompt = torch.as_tensor(batch["tokens"], device=dev)
+    extra = {"frames": torch.as_tensor(batch["frames"], device=dev)}
+
+    # -- (a) serving --------------------------------------------------------
+    mt.reset_launch_counts()
+    with torch.no_grad():
+        api.prefill_fn(params, {"tokens": prompt, **extra}, cfg, s + g)
+    torch.cuda.synchronize()
+    check(mt.launch_counts() == {**ZERO_LAUNCHES, kernel4: per},
+          f"{WHISPER_ARCH} prefill: launches {mt.launch_counts()}")
+    label = f"{WHISPER_ARCH} one-shot ({cfg.encoder_seq} frames + {s} tokens)"
+    toks, logits, counts = one_shot(torch, cfg, params, prompt, g, s + g,
+                                    label, {kernel4: per * (g + 1)}, extra)
+    rows[WHISPER_PREFILL] = {kernel4: {"launches": per}}
+    rows[WHISPER_DECODE] = {kernel4: {"launches": counts[kernel4] - per}}
+    ops.use_kernels(False)
+    try:
+        toks_off, logits_off, _ = one_shot(
+            torch, cfg, params, prompt, g, s + g, f"{label}, kernels off", {},
+            extra)
+    finally:
+        ops.use_kernels(True)
+    toks_x, logits_x, _ = one_shot(
+        torch, dataclasses.replace(cfg, kv_layout="crossbar"), params, prompt,
+        g, s + g, f"{label}, crossbar fabric", {}, extra)
+    for what, (t_o, l_o) in (("kernels off", (toks_off, logits_off)),
+                             ("crossbar fabric", (toks_x, logits_x))):
+        check(torch.equal(toks, t_o), f"{WHISPER_ARCH} one-shot: the {what} "
+              f"run served other tokens")
+        same_steps(torch, logits, l_o, f"{WHISPER_ARCH} one-shot, {what}")
+    print(f"{WHISPER_ARCH} one-shot: tokens and all {g} steps' logits "
+          f"bit-identical with the kernels on, off and on the crossbar "
+          f"fabric; layout-engine launches {per} at prefill and {per} a "
+          f"decode step", flush=True)
+    del logits, logits_off, logits_x
+
+    # -- (b) training -------------------------------------------------------
+    data = SyntheticLM(cfg, batch=b, seq=TRAIN_SEQ, seed=1)
+    tb = on_card(torch, data.batch_at(0), dev)
+    seen = {}
+    mt.reset_launch_counts()
+    with transpose_operands(seen):
+        loss_on, g_on = loss_and_grads(torch, params, tb, cfg)
+    torch.cuda.synchronize()
+    counts, back = mt.launch_counts(), mt.backward_launch_counts()
+    check(counts == {**ZERO_LAUNCHES, kernel4: 2 * per}
+          and back == {**ZERO_LAUNCHES, kernel4: per},
+          f"{WHISPER_ARCH} loss and gradients: launches {counts}, backward "
+          f"{back}; want {per} forward and {per} backward")
+    ops.use_kernels(False)
+    try:
+        loss_off, g_off = loss_and_grads(torch, params, tb, cfg)
+    finally:
+        ops.use_kernels(True)
+    rel = [float((a.float() - c.float()).norm()
+                 / c.float().norm().clamp(min=1e-30))
+           for a, c in zip(g_on, g_off)]
+    check(abs(float(loss_on) - float(loss_off)) <= 1e-2 * abs(float(loss_off))
+          and max(rel) <= 1e-2 and math.isfinite(float(loss_on)),
+          f"{WHISPER_ARCH}: kernels on vs off loss {float(loss_on)} vs "
+          f"{float(loss_off)}, gradients differ by up to {max(rel)} "
+          f"(relative)")
+    check(all(bool(torch.isfinite(x).all()) for x in g_on),
+          f"{WHISPER_ARCH}: a non-finite gradient")
+    print(f"{WHISPER_ARCH} loss and gradients at {b} x {TRAIN_SEQ}: loss "
+          f"{float(loss_on):.4f} with the kernels on, {float(loss_off):.4f} "
+          f"off; every gradient within {max(rel):.2e} of the kernels-off one "
+          f"(relative, tolerance 1e-2); layout-engine launches {per} forward, "
+          f"{per} backward", flush=True)
+    del g_on, g_off
+    counts, back, _, _ = run_steps(torch, cfg, params, data,
+                                   WHISPER_TRAIN_STEPS,
+                                   f"train {WHISPER_ARCH}")
+    st = WHISPER_TRAIN_STEPS
+    check(counts == {**ZERO_LAUNCHES, kernel4: 2 * per * st}
+          and back == {**ZERO_LAUNCHES, kernel4: per * st},
+          f"train {WHISPER_ARCH}: launches {counts}, backward {back}")
+    rows[WHISPER_TRAIN] = {kernel4: {"launches": per * st}}
+    rows[WHISPER_BACKWARD] = {kernel4: {"launches": back[kernel4]}}
+    if with_profile:
+        profile_train(torch, cfg, params, data, f"{WHISPER_ARCH} train step",
+                      "train_whisper")
+    del params
+    free_model(torch, WHISPER_ARCH)
+
+    # -- (c) kernel 4 at whisper's shapes -------------------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+
+    def words(shape, dtype=torch.int32):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(dtype)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    new = {WHISPER_PREFILL: leaf_row(torch, words, (b, cfg.encoder_seq, hkv,
+                                                    hd), flush,
+                                     "cross K/V leaf"),
+           WHISPER_DECODE: leaf_row(torch, words, (b, s + g, hkv, hd), flush,
+                                    "self-attention cache leaf"),
+           WHISPER_TRAIN: leaf_row(torch, words, (b, cfg.encoder_seq, hkv,
+                                                  hd), flush,
+                                   "cross K/V leaf, training"),
+           WHISPER_BACKWARD: tensor_row(torch, seen["backward"], flush,
+                                        "cross K/V gradient")}
+    del flush, seen
+    for path, r in new.items():
+        rows[path][kernel4].update(r)
+        set_bound(rows[path][kernel4])
+        print_row(kernel4, path, rows[path][kernel4])
+    print(f"whisper phase: {time.perf_counter() - t_phase:.1f}s wall; "
+          f"{card_line()}", flush=True)
+
+
 def card_vs_cpu(torch, dev):
     """The smoke configs in float32, the same parameters on both devices:
     first-step logits within 1e-4 (engine step; gemma3 also one-shot);
@@ -3204,6 +3732,8 @@ def main() -> None:
     preempt_phase(torch, dev, rows)
     moe_phase(torch, dev, rows)
     families_phase(torch, dev, rows)
+    train_phase(torch, dev, rows, args.profile)
+    whisper_phase(torch, dev, rows, args.profile)
     loadgen_phase(torch, dev, rows)
     read_sim_phase(torch, dev)
     card_vs_cpu(torch, dev)

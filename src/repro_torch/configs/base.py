@@ -1,7 +1,9 @@
 """Configuration schema (port of ``repro.configs.base``).
 
 ``ModelConfig`` is the frozen dataclass every module of the port consumes;
-``FabricConfig``/``PortSpec`` describe the memory-movement fabric.  Field
+``FabricConfig``/``PortSpec`` describe the memory-movement fabric;
+``ShapeConfig``/``SHAPES`` name the assigned input-shape cells and
+``TrainConfig`` the optimizer and run settings of training.  Field
 names, defaults and validation are the reference's, so a config built on
 either side names the same model; only :attr:`ModelConfig.param_dtype`
 returns a ``torch.dtype``.
@@ -243,12 +245,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Total parameter count (embeddings included once if tied), the
-        reference's analytic count.  The encoder-decoder family (whisper)
-        comes with its slice (ROADMAP §1 item 7)."""
-        if self.encoder_layers:
-            raise NotImplementedError(
-                "param_count of encoder-decoder configs is ported with "
-                "whisper (ROADMAP §1 item 7)")
+        reference's analytic count; an encoder-decoder config (whisper)
+        adds its encoder layers and each decoder layer's cross-attention."""
         total = self.vocab_size * self.d_model * (
             1 if self.tie_embeddings else 2)
         mixer = {"A": self._attn_params, "L": self._attn_params,
@@ -257,6 +255,11 @@ class ModelConfig:
             total += mixer[t]() + 2 * self.d_model
             if t != "M":           # a Mamba block has no separate FFN
                 total += self._ffn_params()
+        if self.encoder_layers:
+            total += self.encoder_layers * (self._attn_params()
+                                            + self._mlp_params(self.d_ff)
+                                            + 2 * self.d_model)
+            total += self.n_layers * (self._attn_params() + self.d_model)
         return total
 
     def active_param_count(self) -> int:
@@ -267,3 +270,41 @@ class ModelConfig:
             self.moe.expert_d_ff)
         return self.param_count() - idle * sum(
             t != "M" for t in self.layer_types())
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / run-level configuration (the reference's fields and
+    defaults).  ``zero1`` shards the optimizer state over the data axis,
+    which is of size 1 on one card; ``grad_compression`` belongs to the
+    multi-device data-parallel path (ROADMAP §1 item 8)."""
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    zero1: bool = True            # shard optimizer state over data axis
+    grad_accum: int = 0           # microbatches per step; 0 = auto-fit HBM
+    grad_compression: str = "none"  # none | int8
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    seed: int = 0

@@ -1,12 +1,13 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
-``repro.configs.registry``).  Only the ported architectures are listed;
-whisper-medium comes with its slice (ROADMAP §1 item 7)."""
+``repro.configs.registry``): every architecture of the reference, the
+assigned shape cells and the dry-run cell list."""
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import FabricConfig, ModelConfig
+from repro_torch.configs.base import (FabricConfig, ModelConfig, SHAPES,
+                                      ShapeConfig)
 
 ARCHS = {
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
@@ -18,6 +19,7 @@ ARCHS = {
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 
 
@@ -39,6 +41,22 @@ def get_smoke(arch: str) -> ModelConfig:
     return importlib.import_module(ARCHS[arch]).smoke()
 
 
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
 def get_fabric(arch: str) -> FabricConfig:
     """The memory-movement fabric an architecture names."""
     return get_config(arch).resolved_fabric
+
+
+def cells():
+    """All ``(arch, shape, skip)`` dry-run cells; ``long_500k`` is skipped
+    for every architecture that is not subquadratic."""
+    out = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            skip = (shape.name == "long_500k" and not cfg.subquadratic)
+            out.append((arch, shape.name, skip))
+    return out

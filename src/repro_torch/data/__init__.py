@@ -1,3 +1,4 @@
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import (SyntheticLM, TensorSpec, batch_lines,
+                                       make_batch_specs)
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "TensorSpec", "batch_lines", "make_batch_specs"]

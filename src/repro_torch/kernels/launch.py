@@ -6,11 +6,16 @@ wrapper makes before it hands pointers to a kernel, and the launch counts.
 
 Each kernel keeps a launch count (:func:`launch_counts`), incremented by
 its wrapper where it launches the kernel and nowhere else, so a run can show
-that its path went through the kernels.
+that its path went through the kernels.  The launches made inside an
+autograd backward (:func:`backward_launches`, entered by the backward of
+the port's autograd Functions) are counted in the totals and again in
+:func:`backward_launch_counts`, so a training step shows how many of its
+launches were the adjoint movements.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict
 
@@ -28,6 +33,9 @@ _launches: Dict[str, int] = {"gather_burst_network_tiles": 0,
                              "barrel_rotate_groups": 0,
                              "stream_matmul": 0}
 
+_backward: Dict[str, int] = dict.fromkeys(_launches, 0)
+_IN_BACKWARD = [0]
+
 _BOUND: Dict[str, object] = {}
 
 
@@ -36,15 +44,35 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def backward_launch_counts() -> Dict[str, int]:
+    """The launches of :func:`launch_counts` made inside an autograd
+    backward (:func:`backward_launches`)."""
+    return dict(_backward)
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+        _backward[name] = 0
+
+
+@contextlib.contextmanager
+def backward_launches():
+    """Count the launches inside the block as backward launches too (the
+    backward of an autograd Function wraps its adjoint movement in it)."""
+    _IN_BACKWARD[0] += 1
+    try:
+        yield
+    finally:
+        _IN_BACKWARD[0] -= 1
 
 
 def count(name: str) -> None:
     """Record one launch of kernel ``name`` (called by its wrapper right
     before the launch)."""
     _launches[name] += 1
+    if _IN_BACKWARD[0]:
+        _backward[name] += 1
 
 
 def bind(source: str, symbol: str, argtypes):

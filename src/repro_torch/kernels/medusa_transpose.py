@@ -39,8 +39,8 @@ import torch
 from repro_torch.core.transpose import (_check_line_stream, _num_stages,
                                         read_network_oracle)
 from repro_torch.kernels import launch as kl
-from repro_torch.kernels.launch import (launch_counts,  # noqa: F401
-                                        reset_launch_counts)
+from repro_torch.kernels.launch import (  # noqa: F401
+    backward_launch_counts, launch_counts, reset_launch_counts)
 
 # C signatures: (src, idx, dst, n_lines, N, count, row words, row word
 # bytes, stream) for the sparse kernels (count: the gather's frames, the

@@ -10,6 +10,13 @@ takes the plain version for a CPU tensor, and raises on anything else.
 any device — the kernels-off arm, a caller's explicit choice, never a
 fallback.  The switch is this function only; no environment
 variable reads it.
+
+Kernel 4 is differentiable: :func:`transpose_rc` of a tensor that requires
+grad (with grad enabled) goes through :class:`_TransposeRC`, whose
+backward is the same movement with the two axes exchanged — the layout
+kernel again on a CUDA gradient.  The kernels' outputs carry no
+``grad_fn`` of their own, so without it a training forward through the
+layout engine would cut its gradient silently.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 
 from repro_torch.core.transpose import (read_network_oracle,
                                         write_network_oracle)
+from repro_torch.kernels import launch as kl
 from repro_torch.kernels import medusa_transpose as mt
 from repro_torch.kernels import ref
 from repro_torch.kernels.rotator import (barrel_rotate_groups,
@@ -43,10 +51,29 @@ def transpose_rc(x: torch.Tensor) -> torch.Tensor:
     layout-engine kernel.  The kernel computes the permutation for any R
     and C, so the reference's power-of-two tile padding has nothing to do
     here.  Kernels off: the plain swap.  Either way the result is
-    contiguous, so what consumes it sees the same strides."""
+    contiguous, so what consumes it sees the same strides.  An input that
+    requires grad (grad enabled) goes through :class:`_TransposeRC`; the
+    plain swap of the kernels-off arm is differentiable as it is."""
     if not _USE_KERNELS:
         return mt.medusa_transpose_plain(x)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _TransposeRC.apply(x)
     return mt.medusa_transpose_tiles(x)
+
+
+class _TransposeRC(torch.autograd.Function):
+    """Kernel 4 under autograd: the forward is the layout kernel, the
+    backward the layout kernel on the gradient (``[..., C, R, W] → [...,
+    R, C, W]``), counted as a backward launch."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return mt.medusa_transpose_tiles(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with kl.backward_launches():
+            return transpose_rc(grad.contiguous())
 
 
 def kv_line_to_port(kv: torch.Tensor) -> torch.Tensor:

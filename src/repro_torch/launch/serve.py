@@ -44,7 +44,11 @@ tokens in one-shot mode (``t_max`` counts them); its engine serves the
 text alone, as the reference's.  The recurrent and SSM families
 (``--arch recurrentgemma-2b``, ``--arch mamba2-780m``) have no
 full-attention leaf, so their engine runs without a page pool (the dense
-per-slot layout, preemption off) and launches no burst.
+per-slot layout, preemption off) and launches no burst.  The
+encoder-decoder (``--arch whisper-medium``) serves one-shot: its encoder
+reads the data stub's ``frames`` and each decoder layer's cross K/V go
+through the layout engine at prefill; its engine is refused, as the
+reference's (decoder-only families).
 
 Prints throughput, the fabric census, the preemption, admission,
 MoE-dispatch and speculative-decode censuses (engine) and the kernel
@@ -195,7 +199,8 @@ def main(argv=None):
         prompt = torch.as_tensor(prompts, device=device)
         mt.reset_launch_counts()
         t0 = time.perf_counter()
-        extra = {"patch_embeds": batch["patch_embeds"]} if n_patches else {}
+        extra = {k: batch[k] for k in ("patch_embeds", "frames")
+                 if k in batch}
         out = api.greedy_generate(params, prompt, cfg, steps=args.gen_len,
                                   t_max=t_max, extra=extra)
         if device.type == "cuda":

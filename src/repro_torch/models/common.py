@@ -3,7 +3,8 @@ the dense decoder runs): norms, RoPE, attention for prefill, for the
 per-layer cached decode (through the fabric's KV layout engine, or
 line-major on the ``fused`` fabric) and for port-major decode, the KV
 banking relabels, the page-pool plan helpers, the MLP, embeddings,
-logits and the Medusa draft heads.
+sinusoidal positions (whisper), logits, the Medusa draft heads and the
+training loss.
 
 The numerics follow the reference op for op, so the two packages compare
 within float32 rounding: layer norm in float32 with eps 1e-5, RoPE
@@ -86,6 +87,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """The sinusoidal absolute position embedding ``[seq, d]`` in float32
+    (whisper): ``sin`` over the first half of the channels, ``cos`` over
+    the second."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, 2.0 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """:func:`sinusoidal_positions`' row for one position ``pos`` (a
+    scalar tensor) → ``[d]``."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float() / torch.pow(10_000.0, 2.0 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)])
 
 
 # ----------------------------------------------------------------------------
@@ -487,3 +506,17 @@ def draft_logits(p_draft, x: torch.Tensor, p_embed, cfg) -> torch.Tensor:
     h = last[:, None, :] + F.silu(
         torch.einsum("bd,kde->bke", last, p_draft["w"]))   # [B, k, d]
     return logits_apply(p_embed, h, cfg)
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """Mean cross-entropy of ``logits [..., V]`` against ``targets [...]``;
+    the padded vocabulary entries (``>= vocab_size``) are masked to -1e30
+    before the logsumexp."""
+    v = logits.shape[-1]
+    if v > vocab_size:
+        pad = torch.arange(v, device=logits.device) >= vocab_size
+        logits = torch.where(pad, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(lse - gold)

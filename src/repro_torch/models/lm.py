@@ -3,10 +3,11 @@ and sliding-window ``L`` blocks, each with a dense MLP or, when
 ``cfg.moe`` is set, the MoE FFN of :mod:`repro_torch.models.moe`; RG-LRU
 ``R`` blocks (:mod:`repro_torch.models.rglru`) with the same FFN; and
 Mamba-2 ``M`` blocks (:mod:`repro_torch.models.mamba2`), a mixer with no
-FFN.  Parameters, caches, prefill (with a VLM's patch-embedding prefix),
-the per-layer decode step (over dense caches or, gathered, over the page
-pool), the burst-scheduled decode step (with ``serve_fsdp`` weight
-streaming), and the Medusa draft heads any decode step can append.
+FFN.  Parameters, caches, the training forward, prefill (with a VLM's
+patch-embedding prefix), the per-layer decode step (over dense caches or,
+gathered, over the page pool), the burst-scheduled decode step (with
+``serve_fsdp`` weight streaming), and the Medusa draft heads any decode
+step can append.
 
 Parameters are an :class:`LM` module: one :class:`Block` per layer
 (``LM.unit[i][r]`` is pattern position ``i`` of repetition ``r``, the
@@ -28,11 +29,13 @@ returns new arrays); the returned tree holds the same leaves.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import types
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -40,20 +43,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2, moe, rglru
 
-_ENCODER_DECODER = ("the encoder-decoder family (whisper) is ported in a "
-                    "later slice (ROADMAP §1 item 7)")
-
 
 def pattern_unit(cfg: ModelConfig):
     pat = cfg.block_pattern
     reps = cfg.n_layers // len(pat)
     tail = pat[: cfg.n_layers - reps * len(pat)]
     return pat, reps, tail
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family == "audio" or cfg.encoder_layers:
-        raise NotImplementedError(_ENCODER_DECODER)
 
 
 # ----------------------------------------------------------------------------
@@ -132,7 +127,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        _check_supported(cfg)
         dtype = cfg.param_dtype
         unit, reps, tail = pattern_unit(cfg)
         embed = {"table": (cm.pad_vocab(cfg.vocab_size), cfg.d_model)}
@@ -224,7 +218,6 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
     dense ``[batch, t_max]`` reservation.  Sliding-window layers keep a
     per-slot ring ``[batch, min(t_max, window)]`` either way, and ``R`` and
     ``M`` blocks their per-slot conv window and float32 state."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.param_dtype
     hd = cfg.resolved_head_dim
@@ -308,7 +301,7 @@ def _ring_window(kv: torch.Tensor, length: int) -> torch.Tensor:
 
 def _block_apply(t: str, bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
                  positions, cache=None, pos=None, kv_chunk: int = 0,
-                 pm_cache=None):
+                 pm_cache=None, final_state: bool = True):
     """One layer of type ``t``.  With ``pm_cache`` (scheduled decode)
     attention runs on the layer's port-major cache from the step's read
     burst and updates it in place; with ``cache`` (per-layer decode, and
@@ -317,7 +310,8 @@ def _block_apply(t: str, bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
     attends over it, or steps the recurrent state and writes it back in
     place; without either it runs over the current sequence (prefill) and
     returns the new line-major K/V, or the state the decode goes on from
-    (the reference's ``_recover_rec_state``)."""
+    (the reference's ``_recover_rec_state``; not with ``final_state``
+    False, as the training forward has no use for it)."""
     h = cm.apply_norm(x, bp.norm1, cfg.norm)
     if t in ("R", "M"):
         apply, state = ((rglru.rglru_apply, rglru.final_state) if t == "R"
@@ -325,7 +319,7 @@ def _block_apply(t: str, bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
         p = bp.rec if t == "R" else bp.mixer
         out, new_state = apply(p, h, cfg, cache)
         if cache is None:
-            new_state = state(p, h, cfg)
+            new_state = state(p, h, cfg) if final_state else None
         else:
             for name, leaf in new_state.items():
                 cache[name].copy_(leaf)
@@ -352,6 +346,52 @@ def _block_apply(t: str, bp: Block, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.moe is not None:
         return x + moe.moe_apply(bp.ffn, h, cfg), new_kv
     return x + cm.mlp_apply(bp.ffn, h, cfg.mlp), new_kv
+
+
+def _recompute_quietly():
+    """``torch.utils.checkpoint``'s contexts: the forward as it is, the
+    recompute inside the backward with no ambient MoE stats sink."""
+    return contextlib.nullcontext(), moe.dispatch_stats(None)
+
+
+def remat(cfg: ModelConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, rematerialised in the backward when
+    ``cfg.remat != "none"`` and grad is enabled: ``torch.utils.checkpoint.
+    checkpoint(..., use_reentrant=False)``, value-identical to the plain
+    call (``"dots"`` saves nothing either).  The recompute runs with no
+    ambient :func:`repro_torch.models.moe.dispatch_stats` sink, so a
+    training step's MoE movement is counted once, in its forward: the
+    recomputed bursts launch their kernels again but add nothing to
+    ``SchedulerStats`` or ``tokens_dropped``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, context_fn=_recompute_quietly,
+        **kwargs)
+
+
+def _train_block(t: str, bp: Block, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, kv_chunk: int) -> torch.Tensor:
+    return _block_apply(t, bp, x, cfg, positions=positions, kv_chunk=kv_chunk,
+                        final_state=False)[0]
+
+
+def forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+            patch_embeds=None, kv_chunk: int = 0) -> torch.Tensor:
+    """The training forward → logits ``[B, S(+P), V]`` (float32, over the
+    padded vocab): no caches, every layer over the whole sequence, a VLM's
+    ``patch_embeds [B, P, d]`` before the text.  Each block is
+    rematerialised in the backward (:func:`remat`) unless ``cfg.remat`` is
+    ``"none"``.  It never calls :func:`prefill`, whose caches are written
+    in place."""
+    x = cm.embed_apply(params.embed, tokens)
+    if cfg.n_patches and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for t, _, _, _, block in _layers(params, cfg):
+        x = remat(cfg, _train_block, t, block, x, cfg, positions, kv_chunk)
+    x = cm.apply_norm(x, params.final_norm, cfg.norm)
+    return cm.logits_apply(params.embed, x, cfg)
 
 
 def _attn_cached(p, x: torch.Tensor, cfg: ModelConfig, layer_kind: str,

@@ -26,7 +26,15 @@ Differences from the reference, each deliberate:
   syncing the device once per layer; a ``stats`` passed explicitly
   receives its count at once;
 * the reference's ``shard`` annotations (expert parallelism over a mesh)
-  are no-ops on one card and are left out.
+  are no-ops on one card and are left out;
+* the burst payload is differentiable.  The reference moves the payload
+  as machine words (a bitcast), which cuts its tangent: under
+  ``payload="burst"`` its expert weights get a zero gradient.  Here the
+  dispatch scatter and the combine gather are autograd Functions whose
+  backward is the other burst at the same slot indices
+  (:class:`_SlotScatter`, :class:`_SlotGather`): the gradients are those
+  of ``payload="route"``, which the forward equals bit for bit.  The
+  backward bursts report to no :class:`SchedulerStats`.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch.nn.functional as F
 from repro_torch.fabric.fabric import Fabric
 from repro_torch.fabric.scheduler import (BurstScheduler, FRAME_SENTINEL,
                                           SchedulerStats)
+from repro_torch.kernels import launch as kl
 from repro_torch.models import common as cm
 
 #: the ambient stats sink of :func:`dispatch_stats`, and its drop counts
@@ -100,18 +109,17 @@ def _count_dropped(stats: Optional[SchedulerStats],
         stats.tokens_dropped += int(drops)
 
 
-def _burst_dispatch(fabric: Fabric, xt: torch.Tensor, tok: torch.Tensor,
-                    keep: torch.Tensor, slot: torch.Tensor, ec: int,
-                    stats: Optional[SchedulerStats]) -> torch.Tensor:
-    """Dispatch as one sparse-extent write burst: the per-assignment token
-    buffer ``xt[tok] [T*k, d]`` is viewed as frames ``[T*k, N, d/N]`` and
-    scatter-indexed into the zeroed ``[E*C, d]`` slot pool.  Dropped
-    assignments and the pad rows carry ``FRAME_SENTINEL``, which the write
-    network drops; slots no assignment reaches keep their zeros.  Slots
-    are ``expert * C + rank >= 0``: no negative index reaches the burst."""
+def _scatter_slots(fabric: Fabric, xa: torch.Tensor, keep: torch.Tensor,
+                   slot: torch.Tensor, ec: int,
+                   stats: Optional[SchedulerStats]) -> torch.Tensor:
+    """One sparse-extent write burst: the assignment rows ``xa [K, d]``,
+    viewed as frames ``[K, N, d/N]``, land at their slots of a zeroed
+    ``[E*C, d]`` pool.  Dropped assignments and the pad rows carry
+    ``FRAME_SENTINEL``, which the write network drops; slots no assignment
+    reaches keep their zeros.  Slots are ``expert * C + rank >= 0``: no
+    negative index reaches the burst."""
     n = fabric.n_ports
-    d = xt.shape[1]
-    xa = xt.index_select(0, tok)                             # [T*k, d]
+    d = xa.shape[1]
     sidx = torch.where(keep, slot, FRAME_SENTINEL).to(torch.int32)
     pad = -xa.shape[0] % n
     if pad:
@@ -119,20 +127,21 @@ def _burst_dispatch(fabric: Fabric, xt: torch.Tensor, tok: torch.Tensor,
         sidx = torch.cat([sidx, sidx.new_full((pad,), FRAME_SENTINEL)])
     banked = xa.reshape(-1, n, n, d // n).transpose(1, 2)
     ec_pad = ec + (-ec % n)
-    into = xt.new_zeros((ec_pad, n, d // n))
+    into = xa.new_zeros((ec_pad, n, d // n))
     sched = BurstScheduler(fabric, stats=stats)
     sched.enqueue_write("moe/dispatch", banked, scatter=sidx, into=into)
     pool = sched.flush()["moe/dispatch"]                     # [EC_pad, N, d/N]
     return pool.reshape(ec_pad, d)[:ec]
 
 
-def _burst_combine(fabric: Fabric, y: torch.Tensor, keep: torch.Tensor,
-                   slot: torch.Tensor,
-                   stats: Optional[SchedulerStats]) -> torch.Tensor:
-    """Combine as one sparse-extent read burst: the expert output pool
-    ``[E*C, d]`` is the backing line stream and each assignment gathers
-    its slot's frame (dropped assignments and pad rows gather the sentinel
-    → zero frames, matching the masked route)."""
+def _gather_slots(fabric: Fabric, y: torch.Tensor, keep: torch.Tensor,
+                  slot: torch.Tensor,
+                  stats: Optional[SchedulerStats]) -> torch.Tensor:
+    """One sparse-extent read burst: the pool ``y [E*C, d]`` is the backing
+    line stream and each assignment gathers its slot's frame (dropped
+    assignments and pad rows gather the sentinel → zero frames, matching
+    the masked route).  The adjoint of :func:`_scatter_slots` at the same
+    indices, and it of this: live slots are unique."""
     n = fabric.n_ports
     ec, d = y.shape
     k_tot = slot.shape[0]
@@ -148,6 +157,68 @@ def _burst_combine(fabric: Fabric, y: torch.Tensor, keep: torch.Tensor,
     sched.enqueue_read("moe/combine", lines, gather=gidx)
     banked = sched.flush()["moe/combine"]                   # [K/N, N, N, d/N]
     return banked.transpose(1, 2).reshape(-1, d)[:k_tot]
+
+
+class _SlotScatter(torch.autograd.Function):
+    """:func:`_scatter_slots` under autograd; the backward gathers the
+    gradient pool's frames at the same slots (the read burst)."""
+
+    @staticmethod
+    def forward(ctx, xa, keep, slot, ec, fabric, stats):
+        ctx.save_for_backward(keep, slot)
+        ctx.fabric = fabric
+        return _scatter_slots(fabric, xa, keep, slot, ec, stats)
+
+    @staticmethod
+    def backward(ctx, grad):
+        keep, slot = ctx.saved_tensors
+        with kl.backward_launches():
+            g = _gather_slots(ctx.fabric, grad.contiguous(), keep, slot, None)
+        return g, None, None, None, None, None
+
+
+class _SlotGather(torch.autograd.Function):
+    """:func:`_gather_slots` under autograd; the backward scatters the
+    gradient frames into a zeroed pool at the same slots (the write
+    burst)."""
+
+    @staticmethod
+    def forward(ctx, y, keep, slot, fabric, stats):
+        ctx.save_for_backward(keep, slot)
+        ctx.fabric, ctx.ec = fabric, y.shape[0]
+        return _gather_slots(fabric, y, keep, slot, stats)
+
+    @staticmethod
+    def backward(ctx, grad):
+        keep, slot = ctx.saved_tensors
+        with kl.backward_launches():
+            g = _scatter_slots(ctx.fabric, grad.contiguous(), keep, slot,
+                               ctx.ec, None)
+        return g, None, None, None, None
+
+
+def _burst_dispatch(fabric: Fabric, xt: torch.Tensor, tok: torch.Tensor,
+                    keep: torch.Tensor, slot: torch.Tensor, ec: int,
+                    stats: Optional[SchedulerStats]) -> torch.Tensor:
+    """Dispatch as one sparse-extent write burst: the per-assignment token
+    buffer ``xt[tok] [T*k, d]`` scatters into the ``[E*C, d]`` slot pool
+    (:func:`_scatter_slots`; through :class:`_SlotScatter` when it needs a
+    gradient)."""
+    xa = xt.index_select(0, tok)                             # [T*k, d]
+    if xa.requires_grad and torch.is_grad_enabled():
+        return _SlotScatter.apply(xa, keep, slot, ec, fabric, stats)
+    return _scatter_slots(fabric, xa, keep, slot, ec, stats)
+
+
+def _burst_combine(fabric: Fabric, y: torch.Tensor, keep: torch.Tensor,
+                   slot: torch.Tensor,
+                   stats: Optional[SchedulerStats]) -> torch.Tensor:
+    """Combine as one sparse-extent read burst per assignment
+    (:func:`_gather_slots`; through :class:`_SlotGather` when it needs a
+    gradient)."""
+    if y.requires_grad and torch.is_grad_enabled():
+        return _SlotGather.apply(y, keep, slot, fabric, stats)
+    return _gather_slots(fabric, y, keep, slot, stats)
 
 
 def _top_k(probs: torch.Tensor, k: int):

@@ -75,12 +75,15 @@ def _gates(p, xb: torch.Tensor, cfg):
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t * h_{t-1} + b_t`` from ``h_{-1} = 0`` along axis 1, for
     every ``t``: Hillis-Steele over the combine ``(a, b) o (a', b') =
-    (a a', a' b + b')``, the reference's ``associative_scan`` operator."""
-    a, b = a.clone(), b.clone()
+    (a a', a' b + b')``, the reference's ``associative_scan`` operator.
+    Each round builds new tensors (``torch.cat`` of the untouched head and
+    the combined tail) rather than writing slices in place, so autograd
+    can differentiate through the scan."""
     step = 1
     while step < a.shape[1]:
-        b[:, step:] = a[:, step:] * b[:, :-step] + b[:, step:]
-        a[:, step:] = a[:, step:] * a[:, :-step]
+        b = torch.cat([b[:, :step], a[:, step:] * b[:, :-step] + b[:, step:]],
+                      dim=1)
+        a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], dim=1)
         step *= 2
     return b
 

@@ -1,12 +1,51 @@
-"""Deterministic fault injection for the serving engine (port of
-``repro.runtime.fault_tolerance.FaultInjector``).
+"""Fault tolerance (port of ``repro.runtime.fault_tolerance``):
+restart-on-failure training, straggler detection and deterministic fault
+injection.
 
-The training runner and the straggler detector of the reference module
-belong to the training slice and are not here."""
+The :class:`TrainingRunner` wraps the training loop so that a step failure
+(``RuntimeError`` or ``OSError``: device loss, an injected fault) restores
+the latest checkpoint and continues from its step; the data pipeline is a
+pure function of the step (``batch_at``), so recovery is exact.  The port's
+train state changes in place, so the restore copies the checkpoint into
+every live tensor of the state: nothing the failed step wrote survives.
+The :class:`StragglerDetector` flags steps slower than ``threshold`` times
+the EMA, and counts them.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import time
+from typing import Callable, Optional
+
 import numpy as np
+
+from repro_torch.checkpoint import (CheckpointManager, latest_step,
+                                    restore_checkpoint)
+
+log = logging.getLogger("repro_torch.runtime")
+
+
+@dataclasses.dataclass
+class StragglerDetector:
+    threshold: float = 2.0
+    decay: float = 0.9
+    ema: Optional[float] = None
+    flagged: int = 0
+
+    def observe(self, dt: float) -> bool:
+        if self.ema is None:
+            self.ema = dt
+            return False
+        is_straggler = dt > self.threshold * self.ema
+        if is_straggler:
+            self.flagged += 1
+            log.warning("straggler step: %.3fs vs EMA %.3fs", dt, self.ema)
+        else:
+            # stragglers do not poison the EMA
+            self.ema = self.decay * self.ema + (1 - self.decay) * dt
+        return is_straggler
 
 
 class FaultInjector:
@@ -79,3 +118,58 @@ class FaultInjector:
             self.corrupted += 1
             return True
         return False
+
+
+class TrainingRunner:
+    """Checkpoint/restart training driver.
+
+    ``step_fn(state, batch) -> (state, metrics)``; ``state`` is any tree
+    the checkpoint module takes (a dict of the parameters and the
+    :class:`repro_torch.optim.OptState`).  On failure the runner restores
+    the latest checkpoint into ``state``'s tensors and replays from its
+    step; with no checkpoint yet it restarts from ``start_step`` with the
+    state as it is."""
+
+    def __init__(self, step_fn: Callable, data, ckpt: CheckpointManager,
+                 straggler: Optional[StragglerDetector] = None,
+                 fault_injector: Optional[FaultInjector] = None,
+                 max_restarts: int = 10):
+        self.step_fn = step_fn
+        self.data = data
+        self.ckpt = ckpt
+        self.straggler = straggler or StragglerDetector()
+        self.fault_injector = fault_injector
+        self.max_restarts = max_restarts
+        self.restarts = 0
+
+    def run(self, state, start_step: int, num_steps: int,
+            on_metrics: Optional[Callable] = None):
+        step = start_step
+        end = start_step + num_steps
+        while step < end:
+            try:
+                while step < end:
+                    if self.fault_injector is not None:
+                        self.fault_injector.check(step)
+                    t0 = time.monotonic()
+                    batch = self.data.batch_at(step)
+                    state, metrics = self.step_fn(state, batch)
+                    self.straggler.observe(time.monotonic() - t0)
+                    step += 1
+                    self.ckpt.maybe_save(step, state, {"data_step": step})
+                    if on_metrics is not None:
+                        on_metrics(step, metrics)
+            except (RuntimeError, OSError) as e:      # node failure class
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise
+                log.warning("step %d failed (%s); restoring latest "
+                            "checkpoint", step, e)
+                last = latest_step(self.ckpt.directory)
+                if last is None:
+                    step = start_step
+                    continue
+                state, extra = restore_checkpoint(self.ckpt.directory, last,
+                                                  state)
+                step = extra.get("data_step", last)
+        return state, step

@@ -130,12 +130,14 @@ def test_engine_matches_reference_in_lockstep(fused, monkeypatch):
 
 def test_engine_refuses_paths_of_later_slices():
     """The refusals that remain: the sharded pool (ROADMAP §1 item 8) and
-    the encoder-decoder family (item 7, whisper).  What items 4, 6 and
-    7.1-7.3 brought — speculative decode (and ``spec_heads``), aging, the
-    bounded queue, fault injection, SLO deadlines, the MoE family, and the
-    families without a full-attention leaf (a ring-only stack, the SSM
-    family), which build without a pool and with preemption off, as the
-    reference's — now constructs and runs on the CPU."""
+    the engine for the encoder-decoder family (whisper; the reference's
+    engine refuses it too), whose parameters the port now builds.  What
+    items 4, 6 and 7.1-7.3 brought — speculative decode (and
+    ``spec_heads``), aging, the bounded queue, fault injection, SLO
+    deadlines, the MoE family, and the families without a full-attention
+    leaf (a ring-only stack, the SSM family), which build without a pool
+    and with preemption off, as the reference's — now constructs and runs
+    on the CPU."""
     tcfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
     from repro_torch.models import api
     from repro_torch.runtime import FaultInjector
@@ -152,9 +154,10 @@ def test_engine_refuses_paths_of_later_slices():
         assert eng.kv.pool is None
     assert api.init_params(dataclasses.replace(tcfg, family="ssm"),
                            device="cpu").unit[0][0].attn is not None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        api.init_params(dataclasses.replace(tcfg, family="audio"),
-                        device="cpu")
+    from repro_torch.models.whisper import Whisper
+    assert isinstance(api.init_params(dataclasses.replace(tcfg,
+                                                          family="audio"),
+                                      device="cpu"), Whisper)
     with pytest.raises(ValueError, match="decoder-only"):
         ServingEngine(dataclasses.replace(tcfg, family="audio"), params,
                       max_slots=2, t_max=16)
@@ -218,7 +221,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
     probe = ("import sys, repro_torch.launch.serve, "
-             "repro_torch.launch.loadgen, repro_torch.serving.traffic, "
+             "repro_torch.launch.loadgen, repro_torch.launch.train, "
+             "repro_torch.serving.traffic, "
              "repro_torch.core; "
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")

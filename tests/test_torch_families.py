@@ -348,10 +348,14 @@ def test_vlm_batch_bit_equal_to_reference():
                                           want[k].view(np.uint32)
                                           if k == "patch_embeds" else want[k])
         assert got["tokens"].shape == (3, 6)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SyntheticLM(dataclasses.replace(get_smoke("stablelm-1.6b"),
-                                        family="audio"),
-                    batch=1, seq=4).batch_at(0)
+    audio = dataclasses.replace(get_smoke("stablelm-1.6b"), family="audio")
+    got = SyntheticLM(audio, batch=1, seq=4).batch_at(0)
+    want = JSyntheticLM(dataclasses.replace(jget_smoke("stablelm-1.6b"),
+                                            family="audio"),
+                        batch=1, seq=4).batch_at(0)
+    assert got["frames"].shape == (1, audio.encoder_seq, audio.d_model)
+    np.testing.assert_array_equal(got["frames"].view(np.uint32),
+                                  want["frames"].view(np.uint32))
 
 
 # ----------------------------------------------------------------------------
