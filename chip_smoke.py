@@ -157,17 +157,36 @@ Phases (any fault exits non-zero):
    held and timed at one decode step's operands (path ``loadgen:
    stablelm-1.6b``); then the paper's burst simulator on the card, one
    line in the constant N cycles, its pop bit-equal to the CPU's;
-16. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
+16. sharded — the sharded page pool at full width: stablelm-1.6b on 4
+   slots, 6 requests of 448 tokens (8-32 generated, two admitted as
+   others retire), served in turns by six engines: one shard; 2 shards
+   (``all_to_all``), 4 (``all_to_all``) and 4 (``ring``), each pool's
+   pages striped over its shard blocks, every shard on the one card; and
+   for 2 and 4 shards the single-device lowering on the same striped
+   allocator.  After every step the pool words, page tables, per-shard
+   free lists and cursors equal the twin's, the written frames and live
+   logits the one-shard run's; at the end equal tokens, every counter the
+   twin's but the exchanges and the words across shards (the reference's
+   formulas from the steps' plans), kernels 1-2 exactly S launches per
+   sharded stream per direction; the median step of each, the host time
+   of the step's ``shard_plan``, the exchange hop's device time with both
+   collectives beside the whole sharded bursts; kernels 1-2 bit-equal at
+   every shard's operands of one step and timed at shard 0's (path
+   ``sharded: stablelm-1.6b S=2``); the serve CLI with ``--pool-shards``
+   1, 2 and 4 (``--collective ring``): equal tokens, its report line,
+   launches exact;
+17. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
    float32 agree between the card and the CPU within 1e-4 (engine step;
    gemma3 one-shot), granite-moe's tokens and every ``SchedulerStats``
    field exactly; the stablelm smoke through the reference's churn trace
    (swap, recompute, swap with faults): tokens, ``SchedulerStats`` and the
    pool state equal, cache bytes within 1e-4;
-17. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+18. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
    bytes or by operations, at that path's shapes; a matmul's entry also
    names its route; the swap streams' entries are the paths ``swap:
-   <arch>``, the traffic harness's ``loadgen: stablelm-1.6b``), the card
+   <arch>``, the traffic harness's ``loadgen: stablelm-1.6b``, the
+   sharded pool's ``sharded: stablelm-1.6b S=2``), the card
    line again, and the ``{"ok": true, ...}`` line last.
 
 ``--profile`` adds ``torch.profiler`` censuses (after the launch counts
@@ -314,6 +333,20 @@ WHISPER_TRAIN, WHISPER_BACKWARD = (f"{WHISPER_ARCH} train",
                                    f"{WHISPER_ARCH} train backward")
 TRAIN_SMOKES = ("stablelm-1.6b", MOE_ARCH, VLM_ARCH, RG_ARCH, SSM_ARCH,
                 WHISPER_ARCH)
+# the sharded phase: stablelm-1.6b's requests (one per generated length,
+# every prompt STABLELM_PROMPT tokens, submitted at once on ENGINE_SLOTS
+# slots); the shard counts and collectives served beside one shard; the
+# decode whose operands are recorded on the runs timed; the run whose
+# shard-0 operands make the kernels line's rows (path SHARDED); the serve
+# CLI's shard counts and collectives, and its generated tokens
+SHARDED_ARCH = "stablelm-1.6b"
+SHARDED_GENS = (32, 12, 20, 32, 8, 16)
+SHARDED_RUNS = ((2, "all_to_all"), (4, "all_to_all"), (4, "ring"))
+SHARDED_TIMED, SHARDED_ARM = ((2, "all_to_all"), (4, "ring")), 4
+SHARDED_ROWS = "S=2 all_to_all"
+SHARDED = f"sharded: {SHARDED_ARCH} S=2"
+SHARDED_CLI = ((1, "all_to_all"), (2, "all_to_all"), (4, "ring"))
+SHARDED_CLI_GEN = 16
 
 
 def fail(msg: str) -> None:
@@ -3021,6 +3054,451 @@ def loadgen_phase(torch, dev, rows) -> None:
           flush=True)
 
 
+def sharded_phase(torch, dev, rows) -> None:
+    """The sharded page pool at full width: stablelm-1.6b (24 layers, 32 KV
+    heads = N ports, random bf16 weights from seed 0) on the engine with 4
+    slots, the :data:`SHARDED_GENS` requests of :data:`STABLELM_PROMPT`
+    seeded tokens submitted at once (two wait and are admitted as the
+    short ones retire).  Six engines step in turns: one shard, and each of
+    :data:`SHARDED_RUNS` (2 and 4 shards, ``all_to_all`` and ``ring``)
+    beside the single-device lowering on the same striped allocator (a
+    1-shard engine with ``PagePool(n_shards=S)``).  Launch counts reset
+    just before the loop and read just after.  After every step: each
+    sharded engine's pool bytes (as integer words), page table, per-shard
+    free lists and round-robin cursor equal its single-device twin's, its
+    written frames (every slot's positions below its next write, through
+    its page table) and its live slots' logits equal the one-shard run's;
+    ``pool.check()`` runs inside every step.  At the end: equal tokens;
+    every ``SchedulerStats`` field equal to the twin's but the two the
+    sharded pool adds, ``collective_calls`` (4 a step: K and V read and
+    written) and ``words_cross_shard`` (the reference's ``S*(S-1)*cap*N*w``
+    fed by the plans of the steps); kernels 1 and 2 exactly ``S`` launches
+    per sharded stream per direction, one per stream for the admission
+    waves.  Prints each engine's median step, the host time of the step's
+    ``shard_plan`` (the check of its hop rows included, and apart), and the
+    exchange hop's device time (both collectives,
+    at one step's operands, beside the whole sharded read and write bursts
+    and the single-device fused gather of the same frames).  Kernels 1-2
+    are held bit for bit against their plain versions at every shard's
+    operands of that step, and timed at shard 0's (path
+    :data:`SHARDED`).  Then the serve CLI at :data:`SHARDED_CLI`, full
+    width: the same tokens, its report line, launches exact."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.fabric import PagePool, shard_plan
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    cfg, params = load_model(torch, dev, SHARDED_ARCH)
+    n, d = cfg.resolved_fabric.n_ports, cfg.resolved_head_dim
+    prompts = SyntheticLM(cfg, batch=len(SHARDED_GENS), seq=STABLELM_PROMPT,
+                          seed=0).batch_at(0)["tokens"]
+    t_max = STABLELM_PROMPT + max(SHARDED_GENS)
+    card = card_line()
+    runs = {}
+    recorded = {}
+
+    def add(label, shards=1, collective=None, striped=0, arm=0):
+        eng = ServingEngine(cfg, params, max_slots=ENGINE_SLOTS, t_max=t_max,
+                            pool_shards=shards, collective=collective,
+                            check_pool=True)
+        if striped:
+            p = eng.kv.pool
+            eng.kv.pool = PagePool(p.page_size, p.n_pages, p.pages_per_slot,
+                                   eng.max_slots, n_shards=striped)
+        run = dict(eng=eng, shards=shards, collective=collective,
+                   reqs=[Request(i, prompts[i], max_new_tokens=g)
+                         for i, g in enumerate(SHARDED_GENS)],
+                   steps=[], steady=[], decodes=0, plan_s=[], check_s=[],
+                   lives=[], counts=dict(ZERO_LAUNCHES))
+        decode = eng._decode
+
+        def counted(*args):
+            run["decodes"] += 1
+            if run["decodes"] != arm:
+                return decode(*args)
+            with sharded_operands(recorded.setdefault(label, {})):
+                return decode(*args)
+        eng._decode = counted
+        if shards > 1:
+            plans = eng.shard_plans
+
+            def timed_plans(live_idx):
+                checked.clear()
+                t0 = time.perf_counter()
+                out = plans(live_idx)
+                run["plan_s"].append(time.perf_counter() - t0)
+                run["check_s"].append(sum(checked))
+                run["lives"].append(live_idx.copy())
+                return out
+            eng.shard_plans = timed_plans
+        for r in run["reqs"]:
+            eng.submit(r)
+        runs[label] = run
+        return run
+
+    # the host check of each plan's hop rows, timed inside the plan's time
+    checked = []
+    check_rows = engine_mod.check_owned_rows
+
+    def timed_check(*args):
+        t0 = time.perf_counter()
+        check_rows(*args)
+        checked.append(time.perf_counter() - t0)
+    engine_mod.check_owned_rows = timed_check
+
+    base = add("S=1")
+    twins = {}
+    for shards, collective in SHARDED_RUNS:
+        label = f"S={shards} {collective}"
+        add(label, shards, collective,
+            arm=SHARDED_ARM if (shards, collective) in SHARDED_TIMED else 0)
+        if shards not in twins:
+            twins[shards] = f"S=1 lowering, {shards}-striped"
+            add(twins[shards], striped=shards)
+        a, b = runs[label]["eng"], runs[twins[shards]]["eng"]
+        check(a.live_bucket == b.live_bucket
+              and a.kv.pool.n_pages == b.kv.pool.n_pages,
+              f"sharded {label}: its twin's geometry differs")
+    e = 2 * len(base["eng"].kv.paged_entries)       # K and V per paged leaf
+
+    def pool_words(eng):
+        return [leaf.view(torch.int16) for _, _, _, leaf in
+                eng._cache_leaves()]
+
+    def written(eng):
+        """Every slot's frames below its next write position, through its
+        page table: ``[R, frames, N, D]`` words per pool leaf."""
+        ps = eng.page_size
+        frames = []
+        for s in range(eng.max_slots):
+            if eng.active[s] is None:
+                continue
+            t = torch.arange(int(eng.pos[s]))
+            pages = torch.from_numpy(eng.kv.pool.table[s].astype("int64"))
+            frames.append(pages[t // ps] * ps + t % ps)
+        idx = torch.cat(frames).to(dev)
+        return [w.reshape(w.shape[0], -1, *w.shape[-2:]).index_select(1, idx)
+                for w in pool_words(eng)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    order = list(runs.values())
+    for step in range(10 * t_max):
+        if all(r["eng"].drained for r in order):
+            break
+        for run in order:
+            eng = run["eng"]
+            before, dec = mt.launch_counts(), run["decodes"]
+            waves = eng.kv.prefill_bursts
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            run["steps"].append(dt)
+            if run["decodes"] > dec and eng.kv.prefill_bursts == waves:
+                run["steady"].append(dt)
+            for k, v in mt.launch_counts().items():
+                run["counts"][k] += v - before[k]
+        ref = base["eng"]
+        check(len({r["eng"].drained for r in order}) == 1
+              and len({tuple(r["eng"].pos) for r in order}) == 1,
+              f"sharded: the engines left lockstep at step {step}")
+        live = [s for s in range(ENGINE_SLOTS) if ref.active[s] is not None]
+        ref_written = written(ref) if live else None
+        for label, run in runs.items():
+            eng = run["eng"]
+            if run is base:
+                continue
+            if live:
+                check(torch.equal(eng.last_logits[live],
+                                  ref.last_logits[live]),
+                      f"sharded {label}: logits differ from S=1 at step "
+                      f"{step}")
+                check(all(torch.equal(a, b) for a, b in
+                          zip(written(eng), ref_written)),
+                      f"sharded {label}: written frames differ from S=1 at "
+                      f"step {step}")
+            if run["shards"] == 1:
+                continue
+            twin = runs[twins[run["shards"]]]["eng"]
+            a, b = eng.kv.pool, twin.kv.pool
+            check((a.table == b.table).all() and a._rr == b._rr
+                  and a._free_by_shard == b._free_by_shard,
+                  f"sharded {label}: page table, free lists or cursor "
+                  f"differ from its single-device twin at step {step}")
+            check(all(torch.equal(x, y) for x, y in
+                      zip(pool_words(eng), pool_words(twin))),
+                  f"sharded {label}: pool bytes differ from its "
+                  f"single-device twin at step {step}")
+    engine_mod.check_owned_rows = check_rows
+    total = mt.launch_counts()
+    check(all(r["eng"].drained for r in order), "sharded: not drained")
+    check({k: sum(r["counts"][k] for r in order) for k in total} == total,
+          "sharded: the runs' launches do not add up")
+    peak = torch.cuda.max_memory_allocated()
+
+    want_tokens = [r.generated for r in base["reqs"]]
+    check([len(g) for g in want_tokens] == list(SHARDED_GENS)
+          and all(0 <= x < cfg.vocab_size for g in want_tokens for x in g),
+          "sharded S=1: short streams or a token outside the vocab")
+    for label, run in runs.items():
+        eng, shards = run["eng"], run["shards"]
+        check([r.generated for r in run["reqs"]] == want_tokens,
+              f"sharded {label}: tokens differ from S=1")
+        per = shards * e * run["decodes"]
+        want = {**ZERO_LAUNCHES, "gather_burst_network_tiles": per,
+                "scatter_burst_network_tiles":
+                    per + e * eng.kv.prefill_bursts}
+        check(run["counts"] == want,
+              f"sharded {label}: launches {run['counts']} != {want}")
+        if shards == 1:
+            continue
+        st, tw = eng.fabric_stats, runs[twins[shards]]["eng"].fabric_stats
+        for f in dataclasses.fields(st):
+            if f.name not in ("collective_calls", "words_cross_shard"):
+                check(getattr(st, f.name) == getattr(tw, f.name),
+                      f"sharded {label}: {f.name} {getattr(st, f.name)} != "
+                      f"the twin's {getattr(tw, f.name)}")
+        frames = eng.kv.pool.n_pages * eng.page_size
+        cross = sum(2 * e * shards * (shards - 1) * n * d * shard_plan(
+            live, frames, shards, n, reps=reps,
+            cap_bucket=eng.page_size).cap
+            for live in run["lives"] for reps in eng._shard_reps)
+        check(st.collective_calls == e * 2 * run["decodes"] > 0
+              and len(run["lives"]) == run["decodes"]
+              and st.words_cross_shard == cross > 0,
+              f"sharded {label}: {st.collective_calls} exchanges, "
+              f"{st.words_cross_shard} words across shards; want "
+              f"{e * 2 * run['decodes']} and {cross}")
+    med1 = statistics.median(base["steady"])
+    for label, run in runs.items():
+        eng = run["eng"]
+        med = statistics.median(run["steady"])
+        extra = ""
+        if run["shards"] > 1:
+            plan_ms = statistics.median(run["plan_s"]) * 1e3
+            check_ms = statistics.median(run["check_s"]) * 1e3
+            st = eng.fabric_stats
+            extra = (f"; shard_plan {plan_ms:.3f} host ms a step "
+                     f"({plan_ms / (med * 1e3):.1%} of the step), the "
+                     f"check of its hop rows {check_ms:.3f} of it; "
+                     f"{st.collective_calls} exchanges, "
+                     f"{st.words_cross_shard} words across shards of "
+                     f"{st.words_moved} moved; free pages by shard at the "
+                     f"end {eng.kv.pool.free_pages_by_shard}")
+        print(f"sharded {label}: median steady step {med * 1e3:.3f} ms over "
+              f"{len(run['steady'])} ({med / med1:.3f}x S=1), "
+              f"{run['decodes']} decode steps; launches "
+              f"{run['counts']}{extra}; {card}",
+              flush=True)
+    print(f"sharded: the {len(runs)} engines stepped in turns over "
+          f"{len(base['steps'])} steps: equal tokens, live logits and "
+          f"written frames every step; each sharded engine's pool words, "
+          f"page table, free lists and cursor equal its single-device "
+          f"twin's; peak memory {peak / 2 ** 30:.2f} GiB", flush=True)
+
+    sharded_hops(torch, dev, rows, runs, recorded, e, card)
+    del recorded, runs, order, base, twins, run, eng, ref, twin
+    sharded_cli(torch, e)
+    del params
+    free_model(torch, "sharded")
+    print(f"sharded: phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def sharded_hops(torch, dev, rows, runs, recorded, e: int, card: str):
+    """The sharded phase's recorded decode (:func:`sharded_operands`):
+    kernels 1-2 bit-equal to their plain versions at every shard's
+    operands; the exchange hop timed with both collectives (they must give
+    the same bits), beside the whole sharded read and write bursts and the
+    single-device fused gather of the same frames (which must equal the
+    sharded read); the kernels line's rows at shard 0's operands of run
+    :data:`SHARDED_ROWS`."""
+    from repro_torch.fabric import sharded as sh
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.kernels import ops
+    from repro_torch.models import common as cm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+
+    def words(shape):
+        info = torch.iinfo(torch.int32)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+    for label, seen in recorded.items():
+        shards = runs[label]["shards"]
+        check(len(seen["gathers"]) == len(seen["scatters"]) == shards * e
+              and len(seen["reads"]) == e,
+              f"sharded {label}: decode {SHARDED_ARM} recorded "
+              f"{len(seen['gathers'])} gathers, {len(seen['scatters'])} "
+              f"scatters")
+        for i, (lines, idx, nn) in enumerate(seen["gathers"]):
+            bit_equal(torch, mt.gather_burst_network_tiles(lines, idx, nn),
+                      mt.gather_burst_plain(lines, idx, nn),
+                      f"gather ({label}, hop {i})")
+        for i, (banked, idx, into, nn) in enumerate(seen["scatters"]):
+            bit_equal(torch, mt.scatter_burst_network_tiles(
+                banked, idx, into.clone(), nn), mt.scatter_burst_plain(
+                banked, idx, into.clone(), nn), f"scatter ({label}, hop {i})")
+        stream, fetch, place, k_tot = seen["reads"][0]
+        fab = runs[label]["eng"].fabric
+        s, _, cap = fetch.shape
+        reps, frames, n, w = stream.shape
+        lines = stream.reshape(reps * frames, n, w)
+        rows_ = sh._stream_rows(fetch, reps, frames)
+        send = [fab.read_burst(lines, indices=rows_[o]).transpose(1, 2)
+                .reshape(s, cap, n, w) for o in range(s)]
+        a2a, ring = sh._exchange(send, "all_to_all"), sh._exchange(send,
+                                                                   "ring")
+        check(all(torch.equal(x, y) for x, y in zip(a2a, ring)),
+              f"sharded {label}: the ring and the all-to-all differ")
+        banked = fab.read_burst_sharded(stream, fetch, place, k_tot)
+        live_rows = int((fetch < reps * frames // s).sum())
+        live = runs[label]["lives"][SHARDED_ARM - 1]
+        tiled = cm.pool_rep_indices(torch.from_numpy(live).to(dev), reps,
+                                    frames)
+        single = ops.burst_gather_read(lines, tiled, n)
+        check(torch.equal(single, banked),
+              f"sharded {label}: the sharded read differs from the "
+              f"single-device fused gather of its frames")
+        into = stream.clone()
+        times = dict(
+            a2a=time_ms(torch, lambda: sh._exchange(send, "all_to_all")),
+            ring=time_ms(torch, lambda: sh._exchange(send, "ring")),
+            read=time_ms(torch, lambda: fab.read_burst_sharded(
+                stream, fetch, place, k_tot)),
+            write=time_ms(torch, lambda: fab.write_burst_sharded(
+                banked, fetch, place, into)),
+            single=time_ms(torch, lambda: ops.burst_gather_read(
+                lines, tiled, n)))
+        moved = s * s * cap * n * w * 4
+        print(f"sharded {label}: exchange hop at decode {SHARDED_ARM}'s "
+              f"operands (stream {list(stream.shape)} int32, {s} shards x "
+              f"buckets of {cap} lines, {live_rows} live of {s * s * cap}; "
+              f"{moved} bytes a hop): all_to_all {times['a2a']:.4f} ms, "
+              f"ring {times['ring']:.4f} ms (bit-equal); the whole sharded "
+              f"read burst {times['read']:.4f} ms and write burst "
+              f"{times['write']:.4f} ms, against the single-device fused "
+              f"gather of the same frames {times['single']:.4f} ms; {card}",
+              flush=True)
+        if label != SHARDED_ROWS:
+            continue
+        lines0, idx0, n0 = seen["gathers"][0]
+        banked0, sidx0, into0, _ = seen["scatters"][0]
+        rows[SHARDED] = burst_step_rows(
+            torch, words, {"gather": (lines0, idx0, n0),
+                           "scatter": (banked0, sidx0, into0, n0)},
+            SHARDED, False, rows_what="shard-0 hop rows",
+            slots_what="pool lines")
+        for name, r in rows[SHARDED].items():
+            r["launches"] = runs[label]["counts"][name]
+            set_bound(r)
+            print_row(name, SHARDED, r)
+
+
+def sharded_cli(torch, e: int) -> None:
+    """The serve CLI a user calls, at full width, at each of
+    :data:`SHARDED_CLI`: its report line, kernels 1-2's launches exactly
+    ``S`` per sharded stream per direction (one scatter per stream per
+    admission wave), and the same tokens at every shard count."""
+    import io
+
+    from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving import ServingEngine
+
+    served = {}
+
+    class Recording(ServingEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            served["eng"], served["reqs"] = self, []
+
+        def submit(self, req):
+            served["reqs"].append(req)
+            return super().submit(req)
+    cli_tokens = {}
+    serve_cli.ServingEngine = Recording
+    try:
+        for shards, collective in SHARDED_CLI:
+            argv = ["--arch", SHARDED_ARCH, "--batch", str(ENGINE_SLOTS),
+                    "--prompt-len", str(STABLELM_PROMPT), "--gen-len",
+                    str(SHARDED_CLI_GEN), "--engine", "--check-pool",
+                    "--pool-shards", str(shards), "--collective", collective]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                serve_cli.main(argv)
+            text = out.getvalue()
+            eng = served["eng"]
+            counts = mt.launch_counts()
+            per = shards * e * eng.step_count
+            want = {**ZERO_LAUNCHES, "gather_burst_network_tiles": per,
+                    "scatter_burst_network_tiles":
+                        per + e * eng.kv.prefill_bursts}
+            line = [x for x in text.splitlines()
+                    if x.startswith("sharded pool:")]
+            label = f"sharded serve --pool-shards {shards} --collective " \
+                    f"{collective}"
+            check(counts == want, f"{label}: launches {counts} != {want}")
+            check(len(line) == (shards > 1) and eng.step_count
+                  == SHARDED_CLI_GEN - 1, f"{label}: report {line}, "
+                  f"{eng.step_count} steps")
+            cli_tokens[shards] = [r.generated for r in served["reqs"]]
+            served.clear()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            served_line = [x for x in text.splitlines()
+                           if x.startswith("served")]
+            print(f"{label}: {served_line[0] if served_line else ''}; "
+                  f"{line[0] if line else 'no sharded pool'}; launches "
+                  f"{counts}", flush=True)
+    finally:
+        serve_cli.ServingEngine = ServingEngine
+    check(len({str(t) for t in cli_tokens.values()}) == 1,
+          "sharded serve: the CLI's tokens differ across shard counts")
+
+
+@contextlib.contextmanager
+def sharded_operands(seen: dict):
+    """While open, record into ``seen`` (cloned) every operand set that
+    reaches kernels 1-2 through ``kernels.ops`` (``gathers``,
+    ``scatters``: one per shard per sharded stream) and every sharded read
+    burst's operands (``reads``: ``(stream, fetch, place, k_tot)``)."""
+    from repro_torch.fabric import sharded as sh
+    from repro_torch.kernels import ops
+
+    gather, scatter = ops.burst_gather_read, ops.burst_scatter_write
+    read = sh.sharded_read_burst
+    for key in ("gathers", "scatters", "reads"):
+        seen.setdefault(key, [])
+
+    def gather_spy(lines, idx, n):
+        seen["gathers"].append((lines.clone(), idx.clone(), n))
+        return gather(lines, idx, n)
+
+    def scatter_spy(banked, idx, into, n):
+        seen["scatters"].append((banked.clone(), idx.clone(), into.clone(),
+                                 n))
+        return scatter(banked, idx, into, n)
+
+    def read_spy(fabric, stream, fetch, place, k_tot):
+        seen["reads"].append((stream.clone(), fetch.clone(), place.clone(),
+                              k_tot))
+        return read(fabric, stream, fetch, place, k_tot)
+    ops.burst_gather_read, ops.burst_scatter_write = gather_spy, scatter_spy
+    sh.sharded_read_burst = read_spy
+    try:
+        yield seen
+    finally:
+        ops.burst_gather_read, ops.burst_scatter_write = gather, scatter
+        sh.sharded_read_burst = read
+
+
 def read_sim_phase(torch, dev) -> None:
     """The paper's burst simulator on the card: the constant N-cycle
     latency of one line (the reference's ``tests/test_burst.py::
@@ -3736,6 +4214,7 @@ def main() -> None:
     whisper_phase(torch, dev, rows, args.profile)
     loadgen_phase(torch, dev, rows)
     read_sim_phase(torch, dev)
+    sharded_phase(torch, dev, rows)
     card_vs_cpu(torch, dev)
 
     # one entry per kernel and path: its launches on that path's runs, its

@@ -46,8 +46,10 @@ class FabricConfig:
     and KV traffic is never banked).  ``page_size`` is the KV-cache
     page in timesteps, ``pack`` the burst layout, ``word_fold`` the
     machine-word lane folding cap, ``paged_pool``/``fused_gather`` the
-    serving engine's KV storage and where its page gather runs.  The
-    remaining fields are carried for parity with the reference config."""
+    serving engine's KV storage and where its page gather runs,
+    ``pool_shards``/``collective`` the sharded pool's shard count and its
+    exchange (``all_to_all`` or the ``ring`` of rotations).  The remaining
+    fields are carried for parity with the reference config."""
     n_ports: int = 8
     lane_width: int = 64
     impl: str = "medusa"          # medusa | crossbar | oracle | fused
@@ -294,7 +296,7 @@ class TrainConfig:
     """Optimizer / run-level configuration (the reference's fields and
     defaults).  ``zero1`` shards the optimizer state over the data axis,
     which is of size 1 on one card; ``grad_compression`` belongs to the
-    multi-device data-parallel path (ROADMAP §1 item 8)."""
+    multi-device data-parallel path (ROADMAP §1 item 8b)."""
     lr: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 1000

@@ -48,6 +48,10 @@ class Fabric:
     """A W_line ↔ N x W_acc memory-movement fabric with selectable network."""
 
     config: FabricConfig
+    #: the mesh carrying the ``pool`` axis when ``config.pool_shards > 1``
+    #: (:func:`repro_torch.fabric.sharded.make_pool_mesh`); None on the
+    #: single-device fabric.
+    mesh: "object | None" = dataclasses.field(default=None, compare=False)
 
     @classmethod
     def for_model(cls, cfg) -> "Fabric":
@@ -206,6 +210,36 @@ class Fabric:
         if self.burst_kernelized_for(banked.dtype):
             return kops.burst_write(banked, n)
         return self.write(banked[None])
+
+    # -- the sharded pool -------------------------------------------------------
+    @property
+    def pool_sharded(self) -> bool:
+        """Whether sparse bursts lower as the two-hop collective over the
+        ``pool`` mesh axis (``config.pool_shards > 1`` and a mesh bound)."""
+        return self.config.pool_shards > 1 and self.mesh is not None
+
+    def read_burst_sharded(self, stream: torch.Tensor, fetch: torch.Tensor,
+                           place: torch.Tensor, k_tot: int) -> torch.Tensor:
+        """Sparse read burst over the pool-sharded line stream ``[R, F, N,
+        W]``: each shard fuse-gathers its owned frames (:meth:`read_burst`
+        at the plan's ``fetch`` rows, kernel 1 on the card), one collective
+        delivers them, and the result is the banked ``[k_tot//N, N, N, W]``
+        the single-device sparse read produces, bit for bit.  The ``fetch``
+        / ``place`` operands come from
+        :func:`repro_torch.fabric.sharded.shard_plan`."""
+        from repro_torch.fabric import sharded as _sh
+        return _sh.sharded_read_burst(self, stream, fetch, place, k_tot)
+
+    def write_burst_sharded(self, banked: torch.Tensor, fetch: torch.Tensor,
+                            place: torch.Tensor,
+                            into: torch.Tensor) -> torch.Tensor:
+        """Write direction of :meth:`read_burst_sharded`: the same plan run
+        in reverse lands each banked live frame at its owning shard's pool
+        row of ``into [R, F, N, W]``, in place (the local fused scatter,
+        kernel 2 on the card, after the collective hop).  Returns
+        ``into``."""
+        from repro_torch.fabric import sharded as _sh
+        return _sh.sharded_write_burst(self, banked, fetch, place, into)
 
     def _check_burst(self, tile: torch.Tensor) -> None:
         n = self.config.n_ports

@@ -89,9 +89,9 @@ class PagePool:
     With ``n_shards > 1`` the page ids split into ``n_shards`` contiguous
     blocks, each with its own free stack, and allocation round-robins the
     blocks (the cursor ``_rr``) so a growing sequence's pages stripe
-    across them — the reference's allocator for its pool-sharded lowering,
-    kept here so the order is the reference's for every ``n_shards``
-    (the engine still refuses ``pool_shards > 1``).  ``n_shards=1`` is one
+    across them: block ``s`` is the pages shard ``s`` owns under the
+    pool-sharded lowering (:mod:`repro_torch.fabric.sharded`), so a decode
+    step's live frames spread over the shards.  ``n_shards=1`` is one
     stack, low ids first."""
 
     def __init__(self, page_size: int, n_pages: int, pages_per_slot: int,
@@ -261,11 +261,13 @@ class PagedKVCache:
     max_slots, ...]`` (``[max_slots, ...]`` in the tail): a K/V or ring
     leaf ``[..., T, Hkv, D]``, a conv window ``[..., K-1, C]``, an RG-LRU
     ``h`` ``[..., W]``, an SSM ``state`` ``[..., H, P, N]``.  The wrapper
-    keeps that structure; admission writes into it in place."""
+    keeps that structure; admission writes into it in place.
+    ``pool_shards`` splits the pool's pages into that many shard blocks
+    (:class:`PagePool` ``n_shards``)."""
 
     def __init__(self, caches, max_slots: int, t_max: int, page_size: int,
                  pool_pages: int = 0, paged_entries=(), fabric=None,
-                 fused_gather: bool = False):
+                 fused_gather: bool = False, pool_shards: int = 1):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.fused_gather = fused_gather
@@ -276,7 +278,8 @@ class PagedKVCache:
                                pages_per_slot=-(-t_max // page_size),
                                n_slots=max_slots)
         self.pool = (PagePool(page_size, pool_pages,
-                              self.table.pages_per_slot, max_slots)
+                              self.table.pages_per_slot, max_slots,
+                              n_shards=pool_shards)
                      if pool_pages else None)
         self.paged_entries = tuple(paged_entries)
         self.fabric = fabric

@@ -26,6 +26,11 @@ consumer its slice back at :meth:`BurstScheduler.commit`.
   ``enqueue_write(..., scatter=idx, into=pool)`` lands frames at their
   pool rows, in place (sentinels drop).  On the kernelized fabric each
   sparse stream is one fused gather or scatter kernel launch.
+* **Sharded streams**: ``shard=(fetch, place, k_tot)`` (a
+  :func:`repro_torch.fabric.sharded.shard_plan`'s operands) is the
+  sparse extent over the pool-sharded stream ``[R, F, N, *rest]``: each
+  such stream is its own two-hop collective burst (one fused gather or
+  scatter per shard, then one exchange; :mod:`repro_torch.fabric.sharded`).
 
 ``issue()``/``commit()`` stay synchronous on the current stream: the
 network runs at ``issue()``, and the one-deep ordering errors of the
@@ -60,8 +65,9 @@ class SchedulerStats:
     assignments the MoE dispatch dropped at capacity (their scatter
     indices became sentinels), per executed dispatch
     (:func:`repro_torch.models.moe.dispatch_stats`);
-    ``words_cross_shard`` and ``collective_calls`` belong to the sharded
-    pool, ported in a later slice, and stay zero here."""
+    ``collective_calls`` counts the sharded pool's exchanges (one per
+    sharded stream) and ``words_cross_shard`` the words they carry between
+    shards (whole padded buckets, off the diagonal)."""
     streams_served: int = 0
     flushes: int = 0
     network_calls: int = 0
@@ -105,10 +111,15 @@ class _Queued:
     gather: Optional[torch.Tensor] = None
     scatter: Optional[torch.Tensor] = None
     into: Optional[torch.Tensor] = None
+    # pool-sharded sparse extent: ``(fetch, place, k_tot)`` (reads: payload
+    # is the pool stream [R, F, N, *rest]; writes: payload is banked and
+    # ``into`` is that stream)
+    shard: Optional[Tuple] = None
 
     @property
     def sparse(self) -> bool:
-        return self.gather is not None or self.scatter is not None
+        return (self.gather is not None or self.scatter is not None
+                or self.shard is not None)
 
 
 class BurstScheduler:
@@ -146,13 +157,45 @@ class BurstScheduler:
         return sum(q.spec.words for q in queue if q.payload.dtype == dtype)
 
     def enqueue_read(self, name: str, lines: torch.Tensor,
-                     gather: Optional[torch.Tensor] = None) -> PortSpec:
+                     gather: Optional[torch.Tensor] = None,
+                     shard: Optional[Tuple] = None) -> PortSpec:
         """Queue a line stream ``[L, N, *rest]`` (L a multiple of N) for the
         read network.  With ``gather [K]`` (K a multiple of N; sentinels
         read zero frames) the stream is sparse-extent and its result is the
-        banked ``[K//N, N, N, *rest]`` of the addressed frames."""
+        banked ``[K//N, N, N, *rest]`` of the addressed frames.
+
+        ``shard = (fetch, place, k_tot)`` is the pool-sharded form of
+        ``gather``: ``lines`` is the rep-major pool stream ``[R, F, N,
+        *rest]`` and the stream lowers as per-shard fused gathers bridged by
+        one collective, to the same banked ``[k_tot//N, N, N, *rest]``."""
         n = self.fabric.n_ports
         self._check_name(name)
+        if shard is not None:
+            if gather is not None:
+                raise ValueError(f"stream {name!r}: shard= and gather= are "
+                                 f"mutually exclusive lowerings")
+            if lines.ndim < 3 or lines.shape[2] != n:
+                raise ValueError(
+                    f"stream {name!r}: sharded read wants the rep-major pool "
+                    f"stream [R, F, N, ...] for N={n}, "
+                    f"got {tuple(lines.shape)}")
+            fetch, _, k_tot = shard
+            s = fetch.shape[0]
+            if k_tot % (s * n):
+                raise ValueError(
+                    f"stream {name!r}: k_tot={k_tot} must split into {s} "
+                    f"shard blocks of whole N={n} groups")
+            rest = tuple(lines.shape[3:])
+            width = _prod(rest)
+            groups = k_tot // n
+            spec = PortSpec(
+                name=name, direction="read", words=groups * width,
+                offset=self._extent(self._reads, lines.dtype),
+                gathered=True,
+                pool_words=lines.shape[0] * lines.shape[1] * width // n)
+            self._reads.append(_Queued(spec, lines, rest, width, groups,
+                                       shard=shard))
+            return spec
         if lines.ndim < 2 or lines.shape[1] != n or lines.shape[0] % n:
             raise ValueError(f"stream {name!r}: want [k*N, N, ...] lines for "
                              f"N={n}, got {tuple(lines.shape)}")
@@ -177,16 +220,55 @@ class BurstScheduler:
 
     def enqueue_write(self, name: str, banked: torch.Tensor,
                       scatter: Optional[torch.Tensor] = None,
-                      into: Optional[torch.Tensor] = None) -> PortSpec:
+                      into: Optional[torch.Tensor] = None,
+                      shard: Optional[Tuple] = None) -> PortSpec:
         """Queue a banked buffer ``[G, N, N, *rest]`` for the write network.
         With ``scatter``/``into`` the stream is sparse-extent: each line
         lands at its indexed row of ``into [L, N, *rest]``, in place, and
-        the committed result is ``into``."""
+        the committed result is ``into``.
+
+        ``shard = (fetch, place, k_tot)`` is the pool-sharded form of
+        ``scatter``: ``into`` is the rep-major pool stream ``[R, F, N,
+        *rest]``, and each banked frame reaches its owning shard through one
+        collective before the local fused scatter lands it, in place."""
         n = self.fabric.n_ports
         if banked.ndim < 3 or banked.shape[1] != n or banked.shape[2] != n:
             raise ValueError(f"stream {name!r}: want [G, N, N, ...] banked for "
                              f"N={n}, got {tuple(banked.shape)}")
         self._check_name(name)
+        if shard is not None:
+            if scatter is not None:
+                raise ValueError(f"stream {name!r}: shard= and scatter= are "
+                                 f"mutually exclusive lowerings")
+            if into is None:
+                raise ValueError(f"stream {name!r}: sharded write needs the "
+                                 f"pool stream to land in (into=)")
+            if into.ndim != banked.ndim or into.shape[2] != n \
+                    or tuple(into.shape[3:]) != tuple(banked.shape[3:]):
+                raise ValueError(
+                    f"stream {name!r}: sharded scatter target "
+                    f"{tuple(into.shape)} does not match banked frames "
+                    f"{tuple(banked.shape)} (want rep-major [R, F, N, ...])")
+            if not into.is_contiguous():
+                raise ValueError(
+                    f"stream {name!r}: the scatter lands in place, so the "
+                    f"pool stream (into=) must be contiguous")
+            _, _, k_tot = shard
+            if k_tot != banked.shape[0] * n:
+                raise ValueError(
+                    f"stream {name!r}: plan k_tot={k_tot} != banked line "
+                    f"count {banked.shape[0] * n}")
+            rest = tuple(banked.shape[3:])
+            width = _prod(rest)
+            spec = PortSpec(
+                name=name, direction="write", words=banked.shape[0] * width,
+                offset=self._extent(self._writes, banked.dtype),
+                gathered=True,
+                pool_words=into.shape[0] * into.shape[1] * width // n)
+            self._writes.append(_Queued(spec, banked, rest, width,
+                                        banked.shape[0], into=into,
+                                        shard=shard))
+            return spec
         if (scatter is None) != (into is None):
             raise ValueError(
                 f"stream {name!r}: sparse writes need both scatter indices "
@@ -259,6 +341,16 @@ class BurstScheduler:
             sparse = [q for q in streams if q.sparse]
             for q in sparse:
                 self.stats.words_live += q.groups * n * n * q.width
+            sharded = [q for q in streams if q.shard is not None]
+            if sharded:
+                # pool-sharded lowering: each stream is its own two-hop
+                # collective burst; the other streams of the dtype go on
+                for q in sharded:
+                    out[q.spec.name] = self._run_sparse_sharded(q, read)
+                streams = [q for q in streams if q.shard is None]
+                sparse = [q for q in streams if q.sparse]
+                if not streams:
+                    continue
             if sparse and self.fabric.burst_kernelized_for(dtype):
                 # fused lowering: each sparse stream is one gather/scatter
                 # kernel launch; dense streams still share one packed burst
@@ -322,6 +414,43 @@ class BurstScheduler:
         # the pool's storage and the scatter lands in the pool itself
         self.fabric.write_burst(view(q.payload, 3), indices=q.scatter,
                                 into=view(q.into, 2))
+        return q.into
+
+    def _run_sparse_sharded(self, q: _Queued, read: bool) -> torch.Tensor:
+        """One pool-sharded sparse stream through the two-hop collective
+        (:meth:`Fabric.read_burst_sharded` / :meth:`Fabric.
+        write_burst_sharded`): every shard runs the fused gather or scatter
+        on the frames it owns and one collective bridges them.  The word
+        fold applies as on the single-device kernel path (within-line), so
+        the collective moves ``1/fold`` the lanes too."""
+        n = self.fabric.n_ports
+        fetch, place, k_tot = q.shard
+        s, _, cap = fetch.shape
+        fold = self._sparse_fold(q)
+        elems = q.groups * n * n * q.width
+        self.stats.network_calls += 1
+        self.stats.collective_calls += 1
+        self.stats.gather_fused_bursts += 1
+        if self.fabric.burst_kernelized_for(q.payload.dtype):
+            self.stats.kernel_bursts += 1
+        self.stats.words_moved += elems
+        self.stats.words_folded += elems - elems // fold
+        # the exchange moves whole padded buckets; the diagonal stays local
+        self.stats.words_cross_shard += s * (s - 1) * cap * n * q.width
+        dt = q.payload.dtype
+
+        def view(x):
+            # a view sharing x's storage: the write lands in the pool itself
+            return _word_view(x.reshape(tuple(x.shape[:3]) + (q.width,)),
+                              dt, fold)
+
+        if read:
+            banked = self.fabric.read_burst_sharded(view(q.payload), fetch,
+                                                    place, k_tot)
+            return _unword_view(banked, dt).reshape(
+                (q.groups, n, n) + q.rest_shape)
+        self.fabric.write_burst_sharded(view(q.payload.contiguous()), fetch,
+                                        place, view(q.into))
         return q.into
 
     def _fold_factor(self, dtype: torch.dtype, supports) -> int:

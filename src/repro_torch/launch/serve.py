@@ -22,7 +22,12 @@ either mode.  Two modes, as the reference's:
   machine-word folding cap, and ``--serve-fsdp`` streams the weights
   through the step's read burst.  A fabric that cannot bank the KV leaves
   (``fused``, or an explicit geometry off one port per KV head) decodes
-  through the per-layer paged path.
+  through the per-layer paged path.  ``--pool-shards S`` splits the page
+  pool into ``S`` shard blocks (pages striped round-robin over them): each
+  K/V pool stream then lowers as one gather (scatter) kernel launch per
+  shard bridged by one exchange, ``--collective all_to_all`` or its
+  ``ring`` of ``S-1`` rotations.  Every shard lives on the one device of
+  the run.
 
 Under oversubscription the engine degrades as the reference's does:
 ``--priority-classes`` spreads the requests over priority classes (request
@@ -109,6 +114,18 @@ def main(argv=None):
                     help="fuse the pool's logical->physical gather into the "
                          "bursts (default on); --no-fused-gather banks the "
                          "whole pool and gathers after the burst")
+    ap.add_argument("--pool-shards", type=int, default=0,
+                    help="shard the physical page pool over this many "
+                         "blocks of a `pool` mesh axis: fused sparse bursts "
+                         "lower as per-shard gathers bridged by one "
+                         "collective, pages stripe round-robin across "
+                         "shards (0 = the config's, 1: off); every shard "
+                         "lives on the one device of the run")
+    ap.add_argument("--collective", default=None,
+                    choices=["all_to_all", "ring"],
+                    help="exchange-hop collective of the sharded pool: the "
+                         "monolithic all-to-all or the ring of S-1 "
+                         "rotations (value-identical)")
     ap.add_argument("--pack", default=None, choices=["packed", "pad"],
                     help="burst layout of the scheduled decode step "
                          "(default: the config's, packed)")
@@ -215,6 +232,8 @@ def main(argv=None):
     eng = ServingEngine(cfg, params, max_slots=args.batch, t_max=t_max,
                         pool_pages=args.pool_pages,
                         fused_gather=args.fused_gather,
+                        pool_shards=args.pool_shards,
+                        collective=args.collective,
                         preempt=args.preempt,
                         swap_space_pages=args.swap_space_pages,
                         check_pool=args.check_pool,
@@ -268,6 +287,15 @@ def main(argv=None):
     if fs.gather_fused_bursts:
         print(f"fused gather: {fs.words_live} live-frame words through "
               f"{fs.gather_fused_bursts} sparse-extent bursts")
+        if fs.collective_calls:
+            local = fs.words_moved - fs.words_cross_shard
+            print(f"sharded pool: {eng.pool_shards} shards x "
+                  f"{eng.fabric.config.collective} — "
+                  f"{fs.words_cross_shard} words crossed shards vs "
+                  f"{max(local, 0)} local, through "
+                  f"{fs.collective_calls} collective exchanges "
+                  f"(pages striped "
+                  f"{pool.free_pages_by_shard} free/shard)")
     elif not lm.paged_entries(cfg):
         print("fused gather: off — no full-attention leaf to pool or bank; "
               "the step decodes through the per-layer path")

@@ -4,7 +4,7 @@
 The reference's step is a pjit function over a mesh whose parameter,
 optimizer-state and batch shardings this module also builds; on one card
 there is nothing to shard, and the mesh builders, the serving steps and
-the parameter specs belong to the multi-device path (ROADMAP §1 item 8).
+the parameter specs belong to the multi-device path (ROADMAP §1 item 8b).
 """
 
 from __future__ import annotations

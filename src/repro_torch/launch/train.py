@@ -65,7 +65,7 @@ def main(argv=None):
     if args.multi_pod:
         raise NotImplementedError(
             "--multi-pod trains over a mesh of devices, the multi-device "
-            "path (ROADMAP §1 item 8); this port trains on one card")
+            "path (ROADMAP §1 item 8b); this port trains on one card")
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
     if device.type == "cuda":

@@ -93,20 +93,24 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int, pool_pages: int = 0,
 
 def decode_fn(params, token, caches, pos, cfg: ModelConfig,
               sched=None, page_table=None, page_size: int = 0,
-              t_depth: int = 0, live_plan=None, draft: bool = False):
+              t_depth: int = 0, live_plan=None, shard_plans=None,
+              draft: bool = False):
     """One decode step: the per-layer path without ``sched``, the
     burst-scheduled step with a ``BurstScheduler`` (see
-    :func:`repro_torch.models.lm.decode_step`).  ``draft`` appends the
+    :func:`repro_torch.models.lm.decode_step`); ``shard_plans`` lowers the
+    fused sparse bursts over the sharded pool.  ``draft`` appends the
     Medusa draft heads' logits (``[B, 1+k, V]``, row 0 the real
     unembedding's).  The audio family takes the per-layer path only."""
     if cfg.family == "audio":
-        if sched is not None or page_table is not None or draft:
+        if sched is not None or page_table is not None or draft \
+                or shard_plans is not None:
             raise ValueError("the burst-scheduled step, the paged pool and "
                              "draft heads cover decoder-only families")
         return whisper.decode_step(params, token, caches, pos, cfg)
     return lm.decode_step(params, token, caches, pos, cfg, sched=sched,
                           page_table=page_table, page_size=page_size,
-                          t_depth=t_depth, live_plan=live_plan, draft=draft)
+                          t_depth=t_depth, live_plan=live_plan,
+                          shard_plans=shard_plans, draft=draft)
 
 
 def greedy_generate(params, prompt: torch.Tensor, cfg: ModelConfig,

@@ -488,7 +488,7 @@ def _emit_logits(params, x: torch.Tensor, cfg: ModelConfig,
 
 def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
                 page_table=None, page_size: int = 0, t_depth: int = 0,
-                live_plan=None, draft: bool = False):
+                live_plan=None, shard_plans=None, draft: bool = False):
     """One decode step: ``token [B, 1]`` + caches at ``pos`` (scalar, or per
     slot ``[B]``; a host value or a tensor) → ``(logits [B, 1, V],
     caches)``.  Positions outside the cache depth raise ``ValueError``.
@@ -516,6 +516,14 @@ def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
     scatters into the pool leaves in place, so the returned caches share
     storage with ``caches``.
 
+    With ``shard_plans`` (``{reps: (fetch, place)}``, the device operands
+    of :func:`repro_torch.fabric.shard_plan`, one per distinct leaf rep
+    count, for a fabric with ``pool_shards > 1``) the fused sparse bursts
+    lower over the sharded pool instead: per-shard fused gathers and
+    scatters bridged by one collective per stream
+    (:mod:`repro_torch.fabric.sharded`), bit for bit the fused form.
+    Requires ``live_plan``.
+
     A fabric off the port-per-KV-head geometry, or the ``fused`` fabric,
     cannot bank the leaves (:func:`_burst_plan` gives None): the step then
     takes the per-layer path, through the page pool with
@@ -530,7 +538,9 @@ def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
         live = live_plan if phys is not None else None
         return _decode_step_scheduled(params, token, caches, pos, positions,
                                       cfg, sched, plan, phys=phys, live=live,
-                                      draft=draft)
+                                      shard_plans=(shard_plans
+                                                   if live is not None
+                                                   else None), draft=draft)
     if phys is not None:
         return _decode_step_paged_fallback(params, token, caches, pos,
                                            positions, cfg, phys, draft=draft)
@@ -600,18 +610,37 @@ def _burst_plan(cfg: ModelConfig, caches):
 
 def _decode_step_scheduled(params: LM, token, caches, pos, positions,
                            cfg: ModelConfig, sched, plan, phys=None,
-                           live=None, draft: bool = False):
+                           live=None, shard_plans=None, draft: bool = False):
     """The burst-scheduled decode step (see :func:`decode_step`)."""
     if live is not None:
         live_idx, expand, dense_pos = live
+
+    def leaf_reps(leaf):
+        """The leaf's leading layer-stack factor (1 for tail leaves)."""
+        return math.prod(_flat_frames(leaf).shape[:-3])
 
     def leaf_gather_idx(leaf):
         """The step's live frames tiled over the leaf's leading layer axis."""
         flat = _flat_frames(leaf)
         if flat.ndim == 3:                       # tail leaf: [F, N, D]
             return live_idx
-        return cm.pool_rep_indices(live_idx, math.prod(flat.shape[:-3]),
-                                   flat.shape[-3])
+        return cm.pool_rep_indices(live_idx, leaf_reps(leaf), flat.shape[-3])
+
+    def leaf_shard(leaf):
+        """The leaf's ``shard=`` operands: the step's fetch/place plan for
+        its rep count, and its line total."""
+        reps = leaf_reps(leaf)
+        fetch, place = shard_plans[reps]
+        return fetch, place, reps * live_idx.shape[0]
+
+    def leaf_stream(leaf):
+        """The leaf's rep-major pool line stream ``[R, F, N, D]``, a view
+        of the leaf (the explicit rep axis keeps page ownership the same in
+        every rep)."""
+        flat = _flat_frames(leaf)
+        if flat.ndim == 3:
+            return flat[None]
+        return flat.reshape((-1,) + tuple(flat.shape[-3:]))
 
     # -- burst 1: weight stream + KV banking ----------------------------------
     streamed = (_enqueue_weight_stream(sched, params,
@@ -620,6 +649,10 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
     for kind, i in plan:
         for leaf_name in ("k", "v"):
             leaf = caches[kind][i][leaf_name]
+            if phys is not None and shard_plans is not None:
+                sched.enqueue_read(f"{kind}{i}/{leaf_name}",
+                                   leaf_stream(leaf), shard=leaf_shard(leaf))
+                continue
             if phys is not None:
                 sched.enqueue_read(
                     f"{kind}{i}/{leaf_name}",
@@ -693,6 +726,12 @@ def _decode_step_scheduled(params: LM, token, caches, pos, positions,
                                    + tuple(upd.shape[-1:]))
                 compact = cm.gather_pool_frames(flat, dense_pos,
                                                 flat.ndim - 2)
+                if shard_plans is not None:
+                    sched.enqueue_write(
+                        f"{kind}{i}/{leaf_name}",
+                        cm.port_major_to_banked(compact),
+                        shard=leaf_shard(leaf), into=leaf_stream(leaf))
+                    continue
                 sched.enqueue_write(
                     f"{kind}{i}/{leaf_name}",
                     cm.port_major_to_banked(compact),

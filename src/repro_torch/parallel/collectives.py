@@ -1,0 +1,72 @@
+"""Medusa collective schedule: all-to-all as S-1 ring rotations (port of
+``repro.parallel.collectives``).
+
+The reference runs its collectives inside ``shard_map``, one call per
+rank.  Here a collective is one function over the list of every rank's
+tensor (``blocks[d]`` is rank ``d``'s), and it returns the list of what
+each rank holds after it; the rank count ``S`` is the list's length, so
+``axis_size`` has no counterpart.  With every rank on one device each hop
+is a copy on that device.
+
+``ring_all_to_all`` keeps the paper's diagonal schedule (§III-A): step
+``s = 1..S-1`` is one rotation that moves the blocks ``(d → d+s)`` of
+every rank at once, and each rank keeps its own block.  ``xla_all_to_all``
+keeps the reference's name for the monolithic exchange ("xla": XLA's one
+``all_to_all`` op there): every rank gathers its blocks from every other
+in one transpose.  Both move the same blocks, bit for bit.
+``compressed_psum`` and ``dp_grad_mean`` belong to training across
+devices (ROADMAP §1 item 8b).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+
+def _ppermute(xs: Sequence[torch.Tensor], shift: int) -> List[torch.Tensor]:
+    """One ring rotation: rank ``i``'s tensor arrives at rank
+    ``(i + shift) % S``."""
+    n = len(xs)
+    return [xs[(i - shift) % n] for i in range(n)]
+
+
+def ring_all_to_all(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """All-to-all of every rank's ``[S, ...]`` send buffer (block ``j``
+    destined to rank ``j``) in ``S-1`` rotation steps: afterwards rank
+    ``r`` holds ``out[r][o] = blocks[o][r]``.  Equivalent to
+    :func:`xla_all_to_all`."""
+    n = len(blocks)
+    out = [torch.empty_like(b) for b in blocks]
+    for d in range(n):                      # my own block stays put
+        out[d][d].copy_(blocks[d][d])
+    for s in range(1, n):
+        # step s: every rank sends the block destined for rank (d+s) % S,
+        # which stores it at (dst - s) % S, the sender's rank
+        sent = [blocks[d][(d + s) % n] for d in range(n)]
+        for dst, recv in enumerate(_ppermute(sent, s)):
+            out[dst][(dst - s) % n].copy_(recv)
+    return out
+
+
+def xla_all_to_all(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The "crossbar": the monolithic all-to-all on the same layout, one
+    block transpose ``out[r][o] = blocks[o][r]``."""
+    n = len(blocks)
+    return [torch.stack([blocks[o][r] for o in range(n)]) for r in range(n)]
+
+
+def ring_all_gather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """All-gather as ``S-1`` neighbour rotations: afterwards every rank
+    holds every rank's tensor, concatenated in rank order along axis 0."""
+    n = len(blocks)
+    held = [[b] for b in blocks]
+    cur = list(blocks)
+    for _ in range(n - 1):
+        cur = _ppermute(cur, 1)
+        for r in range(n):
+            held[r].append(cur[r])
+    # held[r][s] is the tensor of rank (r - s) % S; restore rank order
+    return [torch.cat([held[r][(r - j) % n] for j in range(n)])
+            for r in range(n)]

@@ -6,7 +6,7 @@ the quantisation residual is carried in an error-feedback buffer and added
 to the next step's gradient, so the error does not accumulate.  Pure
 functions over lists of tensors.  Their caller, the collective
 data-parallel gradient mean, belongs to the multi-device path (ROADMAP §1
-item 8).
+item 8b).
 """
 
 from __future__ import annotations

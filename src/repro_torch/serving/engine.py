@@ -64,15 +64,24 @@ draft heads (or ``draft_fn``) propose a branch per slot and
 the committed argmax; commits only ever come from row 0 of the step's
 logits, so the token stream is the one ``spec_decode_k=0`` serves.
 
+**The sharded pool** (``pool_shards > 1``, ``collective``): the pool's
+page axis splits into ``pool_shards`` contiguous shard blocks, the
+allocator stripes pages round-robin over them, and each step plans, on the
+host, one :func:`repro_torch.fabric.shard_plan` per distinct leaf rep
+count; every K/V pool stream then lowers as per-shard fused gathers and
+scatters (kernels 1 and 2 once per shard on the card) bridged by one
+exchange, ``all_to_all`` or its ``ring`` of rotations
+(:mod:`repro_torch.fabric.sharded`).  It needs the fused-gather contract.
+Every shard lives on the engine's device in this slice.
+
 The step runs eagerly, so ``fabric_stats`` counts every executed step (the
 reference accumulates its counters once per traced jit bucket instead).
-The sharded pool (ROADMAP §1 item 8) is ported in a later slice; asking
-for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -80,15 +89,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.fabric import (BurstScheduler, Fabric, PagedKVCache,
-                                SchedulerStats, SwapRecord)
+                                SchedulerStats, SwapRecord, make_pool_mesh,
+                                shard_plan)
+from repro_torch.fabric.sharded import check_owned_rows
 from repro_torch.models import api
 from repro_torch.models import common as cm
 from repro_torch.models import lm
 from repro_torch.models import moe
 
-_LATER = "is ported in a later slice (ROADMAP §1 item {})"
 # the seed of the draft heads an engine draws when its params have none
 _DRAFT_SEED = 0x5BEC
+
+
+def _lead_prod(flat) -> int:
+    """Product of a flattened pool leaf's leading (layer-stack) axes."""
+    return math.prod(flat.shape[:-3])
 
 
 @dataclasses.dataclass(eq=False)           # identity equality: the prompt
@@ -124,6 +139,7 @@ class ServingEngine:
                  paged_pool: Optional[bool] = None, pool_pages: int = 0,
                  prefill_burst: Optional[bool] = None,
                  fused_gather: Optional[bool] = None, pool_shards: int = 0,
+                 collective: Optional[str] = None,
                  preempt: Optional[str] = None,
                  swap_space_pages: Optional[int] = None,
                  check_pool: bool = False, fault_injector=None,
@@ -131,9 +147,6 @@ class ServingEngine:
                  max_queue: int = 0, recorder=None):
         if cfg.family == "audio":
             raise ValueError("engine covers decoder-only families")
-        fab_cfg = cfg.resolved_fabric
-        if (pool_shards or fab_cfg.pool_shards) > 1:
-            raise NotImplementedError(f"the sharded pool {_LATER.format(8)}")
         self.cfg = cfg
         # speculative decode: the model's draft heads (drawn here from a
         # fixed seed when params carry none) or ``draft_fn(req,
@@ -160,7 +173,17 @@ class ServingEngine:
         self.device = params.embed["table"].device
         self.max_slots = max_slots
         self.t_max = t_max
-        self.fabric = Fabric(fab_cfg)
+        # the sharded pool: 0 inherits the config's pool_shards; the
+        # fabric config validates the count and the collective
+        fab_cfg = cfg.resolved_fabric
+        shards = pool_shards or fab_cfg.pool_shards
+        if shards > 1 or collective is not None:
+            fab_cfg = dataclasses.replace(
+                fab_cfg, pool_shards=shards,
+                collective=collective or fab_cfg.collective).validate()
+        self.pool_shards = shards = fab_cfg.pool_shards
+        mesh = make_pool_mesh(shards, self.device) if shards > 1 else None
+        self.fabric = Fabric(fab_cfg, mesh=mesh)
         # cache depth rounds up so every leaf's line count divides N
         n = self.fabric.n_ports
         self.t_alloc = -(-t_max // n) * n
@@ -176,8 +199,9 @@ class ServingEngine:
             pages_per_slot = -(-self.t_alloc // ps)
             pool_pages = pool_pages or max_slots * pages_per_slot
             # the pool rides the step's burst as one line stream: its frame
-            # count rounds up to a multiple of N
-            while (pool_pages * ps) % n:
+            # count rounds up to a multiple of N; sharded, its pages also
+            # split into `shards` equal contiguous blocks
+            while (pool_pages * ps) % n or pool_pages % shards:
                 pool_pages += 1
         else:
             pool_pages = 0
@@ -186,14 +210,27 @@ class ServingEngine:
         self.fused = ((fab_cfg.fused_gather_on if fused_gather is None
                        else fused_gather) and self.paged
                       and self.fabric.banks_kv)
-        self.live_bucket = n * ps
+        if shards > 1 and not self.fused:
+            raise ValueError(
+                f"pool_shards={shards} needs the fused-gather pool contract "
+                f"(paged pool + a fabric that banks KV) — the sharded "
+                f"lowering is the sparse burst's collective form")
+        # live-plan lengths quantize to whole page-of-lines buckets; sharded,
+        # the bucket also splits every rep's lines into `shards` blocks of
+        # whole N-groups (lcm, so 1 shard is unchanged)
+        self.live_bucket = n * math.lcm(ps, shards)
         self.kv = PagedKVCache(
             api.init_cache(cfg, max_slots, self.t_alloc,
                            pool_pages=pool_pages, page_size=ps,
                            device=self.device),
             max_slots, self.t_alloc, ps, pool_pages=pool_pages,
             paged_entries=entries if self.paged else (), fabric=self.fabric,
-            fused_gather=self.fused)
+            fused_gather=self.fused, pool_shards=shards)
+        # distinct leading rep counts over the paged leaves: the sharded
+        # step carries one fetch/place plan per rep count
+        self._shard_reps = sorted({
+            max(1, _lead_prod(lm._flat_frames(self.kv.caches[kind][i]["k"])))
+            for kind, i in entries}) if (self.paged and shards > 1) else []
         self.pos = np.zeros((max_slots,), np.int32)      # next write position
         self.active: List[Optional[Request]] = [None] * max_slots
         self.tokens = np.zeros((max_slots, 1), np.int32)
@@ -236,7 +273,8 @@ class ServingEngine:
         self.recorder = recorder
         self.fabric_stats = SchedulerStats()
 
-    def _decode(self, tokens, caches, pos, page_table, live_plan):
+    def _decode(self, tokens, caches, pos, page_table, live_plan,
+                shard_plans=None):
         """One decode step.  The MoE dispatch accounting (its bursts and
         ``tokens_dropped``) goes to ``fabric_stats`` for the decode step
         only; admission's prefill runs outside the sink, as the
@@ -247,6 +285,7 @@ class ServingEngine:
                                  sched=sched, page_table=page_table,
                                  page_size=self.page_size,
                                  t_depth=self.t_alloc, live_plan=live_plan,
+                                 shard_plans=shard_plans,
                                  draft=self._model_draft)
 
     # -- admission -----------------------------------------------------------
@@ -567,14 +606,16 @@ class ServingEngine:
         tokens = torch.from_numpy(self.tokens.copy()).to(dev)
         pos = self.pos.copy()                 # checked on the host
         page_table = self.kv.page_table_device(dev) if self.paged else None
-        live_plan = None
+        live_plan = shard_plans = None
         if self.fused:
-            live_plan = tuple(
-                torch.from_numpy(a).to(dev) for a in cm.page_live_plan(
-                    self.kv.pool.table, self.page_size, self.t_alloc,
-                    self.fabric.n_ports, bucket=self.live_bucket))
+            plan = cm.page_live_plan(
+                self.kv.pool.table, self.page_size, self.t_alloc,
+                self.fabric.n_ports, bucket=self.live_bucket)
+            live_plan = tuple(torch.from_numpy(a).to(dev) for a in plan)
+            if self.pool_shards > 1:
+                shard_plans = self.shard_plans(plan[0])
         logits, new_caches = self._decode(tokens, self.kv.caches, pos,
-                                          page_table, live_plan)
+                                          page_table, live_plan, shard_plans)
         self.kv.update(new_caches)
         self.last_logits = logits[:, 0]
         # commits only ever read row 0 — the real unembedding — so the
@@ -607,6 +648,23 @@ class ServingEngine:
                 self._draft_queue.pop(s, None)
         return len([s for s in range(self.max_slots)
                     if self.active[s] is not None])
+
+    def shard_plans(self, live_idx) -> Dict[int, tuple]:
+        """The step's host-side split of the live frames ``live_idx`` by
+        owning shard: one :func:`repro_torch.fabric.shard_plan` per distinct
+        leaf rep count (the bucket capacity rounds to whole pages), as
+        device operands ``{reps: (fetch, place)}``.  Each plan's local hops
+        are checked here, on the host, to name only their own shard's
+        rows."""
+        frames = self.kv.pool.n_pages * self.page_size
+        out = {}
+        for reps in self._shard_reps:
+            plan = shard_plan(live_idx, frames, self.pool_shards,
+                              self.fabric.n_ports, reps=reps,
+                              cap_bucket=self.page_size)
+            check_owned_rows(plan, reps, frames)
+            out[reps] = plan.operands(self.device)
+        return out
 
     # -- speculative decoding -------------------------------------------------
     def verify_step(self, slot: int, req: Request, committed: int,

@@ -129,21 +129,24 @@ def test_engine_matches_reference_in_lockstep(fused, monkeypatch):
 
 
 def test_engine_refuses_paths_of_later_slices():
-    """The refusals that remain: the sharded pool (ROADMAP §1 item 8) and
-    the engine for the encoder-decoder family (whisper; the reference's
-    engine refuses it too), whose parameters the port now builds.  What
-    items 4, 6 and 7.1-7.3 brought — speculative decode (and
-    ``spec_heads``), aging, the bounded queue, fault injection, SLO
-    deadlines, the MoE family, and the families without a full-attention
-    leaf (a ring-only stack, the SSM family), which build without a pool
-    and with preemption off, as the reference's — now constructs and runs
-    on the CPU."""
+    """The refusal that remains: the engine for the encoder-decoder family
+    (whisper; the reference's engine refuses it too), whose parameters the
+    port now builds.  What items 4, 6, 7.1-7.3 and 8a brought —
+    speculative decode (and ``spec_heads``), aging, the bounded queue,
+    fault injection, SLO deadlines, the MoE family, the families without a
+    full-attention leaf (a ring-only stack, the SSM family), which build
+    without a pool and with preemption off, as the reference's, and the
+    sharded pool (``pool_shards=2``, its pages striped over two shard
+    blocks of one device) — now constructs and runs on the CPU."""
     tcfg = dataclasses.replace(get_smoke("stablelm-1.6b"), dtype="float32")
     from repro_torch.models import api
     from repro_torch.runtime import FaultInjector
     params = api.init_params(tcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingEngine(tcfg, params, max_slots=2, t_max=16, pool_shards=2)
+    sharded = ServingEngine(tcfg, params, max_slots=2, t_max=16,
+                            pool_shards=2)
+    assert sharded.pool_shards == sharded.kv.pool.n_shards == 2
+    assert sharded.fabric.pool_sharded
+    assert sharded.fabric.mesh.devices == (torch.device("cpu"),) * 2
     ring_only = dataclasses.replace(tcfg, block_pattern=("L",),
                                     sliding_window=8)
     mamba = dataclasses.replace(get_smoke("mamba2-780m"), dtype="float32")
@@ -223,7 +226,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     probe = ("import sys, repro_torch.launch.serve, "
              "repro_torch.launch.loadgen, repro_torch.launch.train, "
              "repro_torch.serving.traffic, "
-             "repro_torch.core; "
+             "repro_torch.core, repro_torch.fabric.sharded, "
+             "repro_torch.parallel, repro_torch.launch.mesh; "
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,

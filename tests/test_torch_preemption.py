@@ -52,7 +52,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from tests.torch_serving_pairs import (POOL, SPEC, bits, lockstep,  # noqa
-                                       pair, port_run, prompt)
+                                       pair, port_run, prompt, requests)
 
 @pytest.fixture(autouse=True)
 def _one_thread_and_kernels():
@@ -329,3 +329,58 @@ def test_priority_inversion_bound(starcoder):
         eng.run_to_completion(max_steps=200)
         assert hi.done
     assert landed[0] == landed[1]
+
+
+# ----------------------------------------------------------------------------
+# a pool too small to progress: a defect both engines share, pinned
+# ----------------------------------------------------------------------------
+
+# draws of the reference's unseeded preemption sweep
+# (tests/test_preemption.py::test_property_preemption_churn_parity) that
+# exhaust a 4-page pool of 4-step pages, the sweep's ceil(16 / 4): each
+# spec, the step that raises and the slot that needs a page it cannot get
+EXHAUSTING_DRAWS = {
+    "late-arrivals": ([(0, 7, 1, 0), (4, 7, 1, 0), (4, 7, 1, 0)], 4, 0),
+    "two-at-once": ([(0, 3, 3, 0), (0, 7, 1, 0)], 0, 1)}
+EXHAUSTING = dict(max_slots=2, t_max=24, page_size=4, pool_pages=4,
+                  check_pool=True)
+
+
+def _drive_until_raise(eng, reqs, spec, max_steps=40):
+    """Drive ``spec`` as the reference's sweep drives it (arrivals due at a
+    step are submitted before it); return the step that raised and the
+    error, or ``(None, None)`` if the run ended."""
+    pend = sorted(range(len(spec)), key=lambda i: spec[i][0])
+    for step in range(max_steps):
+        while pend and spec[pend[0]][0] <= step:
+            eng.submit(reqs[pend.pop(0)])
+        try:
+            n = eng.step()
+        except RuntimeError as err:
+            return step, str(err)
+        if n == 0 and not eng.queue and not eng._swapped and not pend:
+            break
+    return None, None
+
+
+@pytest.mark.parametrize("draw", sorted(EXHAUSTING_DRAWS))
+@pytest.mark.parametrize("mode", ["off", "swap", "recompute"])
+def test_exhausting_pool_raises_in_both_engines(starcoder, mode, draw):
+    """Pins a defect of the reference engine that the port reproduces, and
+    fixes neither.  The sweep's docstring says a pool of ``ceil(16 /
+    page_size)`` pages always progresses, even with preemption off; these
+    draws of it disprove that (ROADMAP §3).  Both engines raise the same
+    "page pool exhausted" error at the same step under every ``preempt``
+    mode, so preemption does not rescue it either."""
+    spec, want_step, slot = EXHAUSTING_DRAWS[draw]
+    jcfg, tcfg, jparams, tparams = starcoder
+    kw = dict(EXHAUSTING, preempt=mode)
+    jreqs, treqs = requests(spec, jcfg.vocab_size)
+    raised = [_drive_until_raise(JEngine(jcfg, jparams, **kw), jreqs, spec),
+              _drive_until_raise(ServingEngine(tcfg, tparams, **kw), treqs,
+                                 spec)]
+    for step, msg in raised:
+        assert step == want_step, raised
+        assert msg.startswith(f"page pool exhausted: slot {slot} needs "
+                              f"logical page 2"), raised
+    assert raised[0] == raised[1]
