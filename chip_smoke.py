@@ -20,20 +20,26 @@ Phases (any fault exits non-zero):
    [4, 1024, 4, 256] bf16; the starcoder2-15b engine's bursts: N=4, W=64,
    40 layers of a 6400-frame pool, its dense and padded tile [4, 4,
    8192000]; the gemma3-12b engine's: N=8, W=128, 8 layers of a 6400-frame
-   pool; the layout engine at starcoder2-15b's [4, 1600, 4, 128] leaf and
-   gemma3-12b's ring leaf [4, 1024, 8, 256]) and at edge cases
-   (sentinels, sentinel-only groups, N from 1 to 32, 8/16/64-bit words,
-   rows off 16-byte multiples, ragged R and C, W=1, NaN payloads and
-   -0.0, views off 16-byte alignment, the dense burst applied twice), the gather, the scatter and
-   the layout engine launched twice for the same bits, the gather's
-   sentinel frames read as zeros; then time kernel, plain version
-   and one PyTorch library call (the yardstick the port never calls), CUDA
-   events, median of 30 runs (bursts with a warm L2, the layout engine's
-   leaves out of a flushed one, after a flush that rewrites a 128 MB buffer
-   and after one that only reads it, beside a contiguous ``copy_`` of the
-   same bytes and a 64-byte ``zero_()``, the floor of this timing), and
-   the host time per wrapper call of the layout engine (1000 calls) and of
-   the gather and the scatter (100 calls at each engine's shape);
+   pool; the layout engine at starcoder2-15b's [4, 1600, 4, 128] K/V pair
+   and gemma3-12b's ring pair [4, 1024, 8, 256], a layer's K and V in one
+   launch) and at edge cases (sentinels, sentinel-only groups, N from 1
+   to 32, 8/16/64-bit words, rows off 16-byte multiples, ragged R and C,
+   W=1, NaN payloads and -0.0, views off 16-byte alignment, the dense
+   burst applied twice; the layout engine's leaves of a dtype in one
+   launch, 70 leaves in two, the one-head and one-row identities with no
+   launch, its autograd Function), the gather, the scatter and the layout
+   engine launched twice for the same bits, every multi-leaf launch
+   against its single-leaf launches, the gather's sentinel frames read as
+   zeros; then time kernel, plain version and one PyTorch library call
+   (the yardstick the port never calls), CUDA events, median of 30 runs
+   (bursts with a warm L2, the layout engine's lists out of a flushed
+   one, after a flush that rewrites a 128 MB buffer and after one that
+   only reads it, beside the same leaves' single-leaf launches, a
+   contiguous ``copy_`` of the same bytes and a 64-byte ``zero_()``, the
+   floor of this timing), and the host time per wrapper call of the
+   layout engine (a list, one leaf and single-leaf calls, the device held
+   by a spin; the wrapper's parts apart) and of the gather and the
+   scatter (100 calls at each engine's shape);
 4. interconnect — kernels 5-7 through their ``ops`` entry points
    (``interconnect_read``, ``rotate_groups``, ``matmul``) at the served
    models' full widths: the read network and the barrel rotator on
@@ -56,7 +62,8 @@ Phases (any fault exits non-zero):
 6. gemma3 — full-width gemma3-4b (34 layers, 5:1 sliding-window:global,
    random bf16 weights from a seed), prompt 1536 (past the 1024 window),
    gen 64, batch 4: (a) the one-shot ``greedy_generate`` through the
-   per-layer decode path, 68 layout-engine launches per decode step, run
+   per-layer decode path, 34 layout-engine launches per decode step (a
+   layer's K and V in one), run
    again with the kernels off and on the crossbar fabric — tokens and
    every step's logits must be bit-identical; (b) the engine on both decode
    paths, equal tokens, no layout-engine launch;
@@ -66,12 +73,12 @@ Phases (any fault exits non-zero):
    fused gather, 64 tokens; 16 tokens each on (b) the pad layout with the
    gather after the burst, (c) the dense per-slot layout, (d) the per-leaf
    splice admission, (e) the fused fabric and (f) a medusa fabric off the
-   port-per-KV-head geometry (kernel 4 per leaf per layer); equal tokens on
+   port-per-KV-head geometry (kernel 4 once per layer); equal tokens on
    the common prefix, each path's launch counts, median step and peak
    memory;
 8. gemma3-12b — full width (48 layers, 8 KV heads, ~24 GB), 4 requests of
    1536 tokens, 32 generated: the fused-gather engine (kernels 1-2 at
-   N=8) and the one-shot generate (kernel 4, 96 launches a step) serve
+   N=8) and the one-shot generate (kernel 4, 48 launches a step) serve
    equal tokens;
 9. serve_fsdp — the full-width stablelm-1.6b engine with the weights
    streamed through each step's read burst (one kernel-3 launch a step):
@@ -107,16 +114,16 @@ Phases (any fault exits non-zero):
 12. families — the last decoder-only families at full width (random bf16
    weights from seed 0): internvl2-1b one-shot, 2 rows of 256 patch
    embeddings from the data stub + 192 tokens, 32 steps, kernel 4 exactly
-   48 launches a step, tokens and logits bit-identical with the kernels
+   24 launches a step, tokens and logits bit-identical with the kernels
    off and on the crossbar, and its engine (4 x (448 + 64), kernels 1-2
    at 256-byte frames, the same tokens kernels off and on the crossbar);
-   recurrentgemma-2b one-shot past its 2048 window (2 x 3072 + 32, kernel
-   4 16 launches a step on the ring, kernels on and off bit-identical) and
-   its engine without a pool (no kernel); mamba2-780m one-shot (2 x 1000
-   + 32) and engine (no kernel); each engine's agreement with its
-   one-shot; kernels 1, 2 and 4 held and timed at those shapes (paths
-   ``internvl2-1b engine``, ``internvl2-1b one-shot``,
-   ``recurrentgemma-2b one-shot``); the three float32 smokes card vs CPU
+   recurrentgemma-2b one-shot past its 2048 window (2 x 3072 + 32, no
+   kernel: its one-head ring leaves are views, kernels on and off
+   bit-identical) and its engine without a pool (no kernel); mamba2-780m
+   one-shot (2 x 1000 + 32) and engine (no kernel); each engine's
+   agreement with its one-shot; kernels 1, 2 and 4 held and timed at
+   those shapes (paths ``internvl2-1b engine``, ``internvl2-1b
+   one-shot``); the three float32 smokes card vs CPU
    (tokens and counters exact, logits and every cache leaf within 1e-4);
 13. train — training on the card: full-width stablelm-1.6b through
    ``repro_torch.launch.train.main`` (8 steps of 8 x 64 tokens, remat on,
@@ -134,14 +141,14 @@ Phases (any fault exits non-zero):
    within 1e-4;
 14. whisper — full-width whisper-medium (24 + 24 layers, random bf16
    weights from seed 0): the one-shot of 2 rows of the data stub's 1500
-   frames and 64 tokens, 32 decode steps, kernel 4 exactly 48 launches at
-   prefill and 48 a step, tokens and every step's logits bit-identical
-   with the kernels off and on the crossbar; its loss and gradients at 2
-   x 64 with the kernels on (48 forward and 48 backward launches) and
-   off, within 1e-2; 3 train steps; kernel 4 held and timed at the cross
-   K/V leaf, the self cache leaf and a gradient recorded in the backward
-   (paths ``whisper-medium prefill``, ``decode``, ``train``, ``train
-   backward``);
+   frames and 64 tokens, 32 decode steps, kernel 4 exactly one launch at
+   prefill (the 48 cross K/V leaves) and 24 a step, tokens and every
+   step's logits bit-identical with the kernels off and on the crossbar;
+   its loss and gradients at 2 x 64 with the kernels on (one forward and
+   one backward launch) and off, within 1e-2; 3 train steps; kernel 4
+   held and timed at the 48-leaf cross K/V list, the self cache's pair
+   and the 48 gradients recorded in the backward (paths ``whisper-medium
+   prefill``, ``decode``, ``train``, ``train backward``);
 15. loadgen — the traffic harness at full width: a seeded trace (16
    requests, diurnal arrivals with bursts, lognormal prompts of 16-448 and
    generations of 4-64 tokens, three priority classes, a quarter with SLO
@@ -311,7 +318,7 @@ VLM_ARCH, VLM_TEXT, VLM_ENGINE_PROMPT, VLM_ENGINE_GEN = (
 RG_ARCH, RG_PROMPT = "recurrentgemma-2b", 3072
 SSM_ARCH, SSM_PROMPT = "mamba2-780m", 1000
 FAMILY_GEN = 32
-VLM_ONE_SHOT, RG_ONE_SHOT = f"{VLM_ARCH} one-shot", f"{RG_ARCH} one-shot"
+VLM_ONE_SHOT = f"{VLM_ARCH} one-shot"
 # the train phase: stablelm-1.6b's full-width steps, batch and sequence;
 # the fault path's steps, failure step, checkpoint interval and cut depth;
 # granite-moe-3b-a800m's train steps and batch (sequence TRAIN_SEQ), and
@@ -368,12 +375,14 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, reps: int = REPS, flush=None,
-            read_flush: bool = False) -> float:
+            read_flush: bool = False, spin: int = SPIN_CYCLES) -> float:
     """Median device time of ``fn()`` over ``reps`` runs (CUDA events),
-    after two warm-up calls.  Before each run the device spins for about
-    half a millisecond (``torch.cuda._sleep``), so the host has enqueued
-    the start event, ``fn``'s launches and the end event before the device
-    reaches them: the span is device time, not the host's launch overhead.
+    after two warm-up calls.  Before each run the device spins for
+    ``spin`` cycles, about half a millisecond by default
+    (``torch.cuda._sleep``), so the host has enqueued the start event,
+    ``fn``'s launches and the end event before the device reaches them:
+    the span is device time, not the host's launch overhead (a caller
+    whose ``fn`` takes longer than that to enqueue spins longer).
     With ``flush`` (a buffer larger than the 50 MB L2) the buffer is
     rewritten first, so ``fn`` finds its operands in device memory as a
     cold caller would, and the L2 full of dirty lines; with ``read_flush``
@@ -389,7 +398,7 @@ def time_ms(torch, fn, reps: int = REPS, flush=None,
                 flush.sum()
             else:
                 flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -466,78 +475,39 @@ def print_row(name: str, path: str, r: dict) -> None:
 
 
 def transpose_rows(torch, dev, gen, words):
-    """Kernel 4, the KV layout engine: bit-equal and timed at gemma3-4b's
-    two K/V leaf shapes, bit-equal at the edge cases, each launched twice
-    for the same bits.  Returns the row of the kernels line (the ring leaf, 58
-    of the 68 launches per step) and the full-attention leaf's numbers."""
+    """Kernel 4, the KV layout engine, through its multi-leaf entry: held
+    bit for bit at the edge cases (every word width, R and C not multiples
+    of 4, W=1, NaN payloads and -0.0, 16-byte rows at a ragged R, a view
+    off 16-byte alignment), each alone and all of a dtype in one launch
+    (leaves of other shapes and row words in one table), a list past the
+    table's cap (two launches), the one-head and one-row identities (a
+    view, no launch) and the autograd Function (one launch forward, one on
+    the gradients, an unused output's input without a gradient); then
+    gemma3-4b's K/V pairs held and timed (:func:`leaves_row`) and the
+    wrapper's host time taken apart (:func:`wrapper_parts`).  Returns the
+    rows of the ``ONE_SHOT`` path: the ring layer's pair (``L``, 29 of the
+    34 launches a step) and the full-attention layer's (``A``)."""
+    from repro_torch.kernels import launch as kl
     from repro_torch.kernels import medusa_transpose as mt
     from repro_torch.kernels import ops
 
-    def held(x, what):
-        """The kernel's result held against the plain version and against
-        a second launch; returns the largest word difference (0)."""
-        got = mt.medusa_transpose_tiles(x)
-        err = words_equal(torch, got, mt.medusa_transpose_plain(x), what)
-        words_equal(torch, mt.medusa_transpose_tiles(x), got,
-                    what + " launched again")
-        return err
+    def launches(fn):
+        kl.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kl.launch_counts()["medusa_transpose_tiles"]
 
-    out = {}
-    # a K/V leaf is read once per layer per step, after 8 GB of weights and
-    # the other layers' leaves went by: time it out of a cold L2, after a
-    # flush that leaves the L2 dirty (rewritten) and after one that leaves
-    # it clean (only read)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    for what, t in (("A", GEMMA_PROMPT + GEMMA_GEN), ("L", 1024)):
-        x = words((GEMMA_BATCH, t, 4, 256), torch.int16).view(torch.bfloat16)
-        err = held(x, f"transpose ({what} leaf)")
-        words_equal(torch, ops.kv_line_to_port(x),
-                    mt.medusa_transpose_plain(x), f"kv_line_to_port ({what})")
-
-        def library():
-            return x.transpose(1, 2).contiguous()
-
-        dst = torch.empty_like(x)
-        row = out[what] = dict(
-            max_abs_err=err, bytes=2 * x.numel() * 2,
-            ms=time_ms(torch, lambda: mt.medusa_transpose_tiles(x),
-                       flush=flush),
-            plain_ms=time_ms(torch, lambda: mt.medusa_transpose_plain(x),
-                             flush=flush),
-            library_ms=time_ms(torch, library, flush=flush),
-            ms_read_flush=time_ms(torch, lambda: mt.medusa_transpose_tiles(x),
-                                  flush=flush, read_flush=True),
-            library_ms_read_flush=time_ms(torch, library, flush=flush,
-                                          read_flush=True),
-            host_us_per_call=host_us(torch,
-                                     lambda: mt.medusa_transpose_tiles(x)),
-            copy_ms=time_ms(torch, lambda: dst.copy_(x), flush=flush),
-            copy_ms_read_flush=time_ms(torch, lambda: dst.copy_(x),
-                                       flush=flush, read_flush=True),
-            shape=f"[{GEMMA_BATCH}, {t}, 4, 256] bf16 ({what} leaf)")
-        print(f"transpose ({what} leaf): kernel {row['ms']:.4f} ms, library "
-              f"{row['library_ms']:.4f} ms, contiguous copy_ of the same "
-              f"bytes {row['copy_ms']:.4f} ms after a write flush; "
-              f"{row['ms_read_flush']:.4f}, "
-              f"{row['library_ms_read_flush']:.4f} and "
-              f"{row['copy_ms_read_flush']:.4f} ms after a read-only flush; "
-              f"wrapper {row['host_us_per_call']:.2f} host us per call",
-              flush=True)
-        del x, dst
-    # what this timing reads for a kernel that moves almost nothing
-    tiny = torch.zeros(16, device=dev)
-    print(f"timing floor: a 64-byte zero_() reads "
-          f"{time_ms(torch, tiny.zero_, flush=flush):.4f} ms after a write "
-          f"flush", flush=True)
-    del flush
     # edge cases: every word width, R and C not multiples of 4 (the kernel,
     # and through ops.transpose_rc), W=1, NaN payloads and -0.0, 16-byte
-    # rows at a ragged R, a view off 16-byte alignment
+    # rows at a ragged R, a view off 16-byte alignment; each dtype's leaves
+    # again in one launch beside their single-leaf launches
+    by_dtype = {}
     for dtype, shape in ((torch.uint8, (3, 7, 5, 1)), (torch.int16, (7, 13, 3)),
                          (torch.int32, (2, 9, 6, 2)), (torch.int64, (5, 3, 1)),
                          (torch.float32, (2, 100, 36, 3)),
                          (torch.bfloat16, (3, 11, 2, 16)),
                          (torch.int32, (2, 100, 36, 4)),
+                         (torch.int32, (9, 7, 4)),
                          (torch.bfloat16, (4, 37, 4, 256))):
         if dtype.is_floating_point:
             w = {2: torch.int16, 4: torch.int32}[dtype.itemsize]
@@ -551,13 +521,265 @@ def transpose_rows(torch, dev, gen, words):
             x = words(shape, dtype if dtype != torch.uint8 else torch.int16
                       ).to(dtype)
         what = f"transpose edge {dtype} {list(shape)}"
-        held(x, what)
-        words_equal(torch, ops.transpose_rc(x), mt.medusa_transpose_plain(x),
+        got, n = launches(lambda: mt.medusa_transpose_tiles(x))
+        check(n == 1, f"{what}: {n} launches")
+        words_equal(torch, got, mt.medusa_transpose_plain(x), what)
+        words_equal(torch, mt.medusa_transpose_tiles(x), got,
+                    what + " launched again")
+        words_equal(torch, ops.transpose_rc(x), got,
                     what + " (ops.transpose_rc)")
+        by_dtype.setdefault(dtype, []).append((x, got))
     base = words((1 + 4 * 8 * 16,), torch.int16).view(torch.bfloat16)
     x = base[1:].view(4, 8, 16)               # 2-byte aligned, not 16
-    held(x, "transpose edge unaligned view")
+    got, n = launches(lambda: mt.medusa_transpose_tiles(x))
+    words_equal(torch, got, mt.medusa_transpose_plain(x),
+                "transpose edge unaligned view")
+    by_dtype[torch.bfloat16].append((x, got))
+    for dtype, pairs in by_dtype.items():
+        many, n = launches(lambda: mt.medusa_transpose_many(
+            [x for x, _ in pairs]))
+        check(n == 1, f"transpose edges {dtype}: {n} launches for "
+              f"{len(pairs)} leaves")
+        for (x, one), got in zip(pairs, many):
+            words_equal(torch, got, one, f"transpose edges {dtype} "
+                        f"{list(x.shape)}: one launch vs single-leaf")
+    # past the table's cap: 70 leaves of other shapes, two launches
+    xs = [words((2, 3 + i % 5, 2 + i % 3, 8), torch.int16).view(
+        torch.bfloat16) for i in range(70)]
+    many, n = launches(lambda: mt.medusa_transpose_many(xs))
+    check(n == -(-70 // mt.MAX_LEAVES), f"70 leaves: {n} launches")
+    for i, (x, got) in enumerate(zip(xs, many)):
+        words_equal(torch, got, mt.medusa_transpose_plain(x),
+                    f"transpose 70 leaves, leaf {i}")
+    # the identities: recurrentgemma-2b's one-head ring leaf and a one-row
+    # leaf come back as views, no launch; beside a leaf that moves, one
+    ring = words((FAMILY_BATCH, 2048, 1, 256), torch.int16).view(
+        torch.bfloat16)
+    row = words((3, 1, 5, 8), torch.int16).view(torch.bfloat16)
+    moved = words((3, 5, 4, 8), torch.int16).view(torch.bfloat16)
+    (a, b), n = launches(lambda: mt.medusa_transpose_many([ring, row]))
+    check(n == 0, f"the identity leaves launched {n} times")
+    for x, got, what in ((ring, a, "one-head"), (row, b, "one-row")):
+        check(got.data_ptr() == x.data_ptr() and got.is_contiguous(),
+              f"the {what} leaf is not a contiguous view of its input")
+        words_equal(torch, got, mt.medusa_transpose_plain(x),
+                    f"transpose {what} identity")
+    (a, c), n = launches(lambda: ops.transpose_many([ring, moved]))
+    check(n == 1 and a.data_ptr() == ring.data_ptr(),
+          f"an identity leaf beside a moving one: {n} launches")
+    words_equal(torch, c, mt.medusa_transpose_plain(moved),
+                "transpose beside an identity")
+    print(f"transpose edges: every row word of 1-16 bytes, each dtype's "
+          f"leaves in one launch, 70 leaves in {-(-70 // mt.MAX_LEAVES)} "
+          f"launches, an unaligned view, the one-head {list(ring.shape)} and "
+          f"one-row leaves as views with no launch: bit-equal", flush=True)
+    # the autograd Function: two float32 leaves, the second output unused
+    k0, v0, w0 = (words((2, 9, 4, 6)).float() for _ in range(3))
+    k, v = k0.clone().requires_grad_(), v0.clone().requires_grad_()
+    kl.reset_launch_counts()
+    yk, yv = ops.transpose_many([k, v])
+    gk, gv = torch.autograd.grad((yk * w0.transpose(1, 2)).sum(), [k, v],
+                                 allow_unused=True)
+    torch.cuda.synchronize()
+    kp = k0.clone().requires_grad_()
+    (gp,) = torch.autograd.grad(
+        (kp.transpose(1, 2) * w0.transpose(1, 2)).sum(), [kp])
+    check(gv is None and torch.equal(gk, gp) and torch.equal(
+        yk, mt.medusa_transpose_plain(k0)),
+          "the autograd Function's gradient is not the plain swap's")
+    check(kl.launch_counts()["medusa_transpose_tiles"] == 2
+          and kl.backward_launch_counts()["medusa_transpose_tiles"] == 1,
+          f"the autograd Function launched {kl.launch_counts()}, backward "
+          f"{kl.backward_launch_counts()}")
+    del xs, many, ring, row, moved, by_dtype
+
+    # a K/V leaf is read once per layer per step, after 8 GB of weights and
+    # the other layers' leaves went by: time the layer's pair out of a cold
+    # L2, after a flush that leaves the L2 dirty (rewritten) and after one
+    # that leaves it clean (only read)
+    out = {}
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for what, t in (("A", GEMMA_PROMPT + GEMMA_GEN), ("L", 1024)):
+        pair = [words((GEMMA_BATCH, t, 4, 256), torch.int16).view(
+            torch.bfloat16) for _ in range(2)]
+        for x, y in zip(pair, ops.kv_line_to_port(pair)):
+            words_equal(torch, y, mt.medusa_transpose_plain(x),
+                        f"kv_line_to_port ({what} pair)")
+        out[what] = leaves_row(torch, pair, flush,
+                               f"gemma3-4b {what} layer's K and V")
+        if what == "L":
+            wrapper_parts(torch, pair)
+        del pair
+    # what this timing reads for a kernel that moves almost nothing
+    tiny = torch.zeros(16, device=dev)
+    print(f"timing floor: a 64-byte zero_() reads "
+          f"{time_ms(torch, tiny.zero_, flush=flush):.4f} ms after a write "
+          f"flush", flush=True)
+    del flush
     return out
+
+
+def enqueue_us(torch, fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn()`` with the device held by a
+    spin for the whole loop, so every call only enqueues: the host's own
+    cost, whatever the device's."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES * calls // 5)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def wrapper_parts(torch, xs) -> None:
+    """The host microseconds of each part of kernel 4's wrapper on the
+    leaves ``xs``, beside the parts it no longer calls (the shared
+    ``kl.check_cuda``, ``kl.row_word``, ``kl.stream`` and ``torch.empty``
+    with keywords), the device held (:func:`enqueue_us`)."""
+    import array
+
+    from repro_torch.kernels import launch as kl
+    from repro_torch.kernels import medusa_transpose as mt
+
+    x, dev = xs[0], xs[0].device
+    outs = [v.new_empty(v.shape) for v in xs]
+    desc = [v for y, o in zip(xs, outs) for v in (
+        y.data_ptr(), o.data_ptr(), y.shape[0], y.shape[1], y.shape[2],
+        y.shape[3] * y.element_size() // 16)]
+    fn = kl.bind("medusa_transpose", "medusa_transpose_many",
+                 mt._TRANSPOSE_ARGS)
+    packed = array.array("q", desc)
+    stream = kl.raw_stream(dev)
+    parts = {
+        "check_leaves": lambda: mt.check_leaves(xs, "parts"),
+        "shapes read": lambda: [tuple(v.shape) for v in xs],
+        "x.new_empty": lambda: [v.new_empty(v.shape) for v in xs],
+        "data_ptr": lambda: [(v.data_ptr(), o.data_ptr())
+                             for v, o in zip(xs, outs)],
+        "descriptors": lambda: array.array("q", desc),
+        "bind + count": lambda: (kl.bind("medusa_transpose",
+                                         "medusa_transpose_many",
+                                         mt._TRANSPOSE_ARGS),
+                                 kl.count("medusa_transpose_tiles")),
+        "raw_stream": lambda: kl.raw_stream(dev),
+        "ctypes call (the launch)": lambda: fn(
+            packed.buffer_info()[0], len(xs), 16, stream),
+        "the whole wrapper": lambda: mt.medusa_transpose_many(xs),
+        "the whole wrapper, one leaf": lambda: mt.medusa_transpose_many(
+            xs[:1]),
+        "no longer called: torch.empty with keywords": lambda: [
+            torch.empty(v.shape, dtype=v.dtype, device=v.device)
+            for v in xs],
+        "kl.check_cuda": lambda: kl.check_cuda("parts", x=x, out=outs[0]),
+        "kl.row_word": lambda: kl.row_word(x, outs[0]),
+        "kl.stream (torch.cuda.current_stream)": lambda: kl.stream(x),
+    }
+    got = {name: enqueue_us(torch, part) for name, part in parts.items()}
+    torch.cuda.synchronize()
+    print(f"transpose wrapper host us per call, {len(xs)} leaves "
+          f"{list(x.shape)}, the device held: " + "; ".join(
+              f"{name} {us:.2f}" for name, us in got.items()), flush=True)
+
+
+def leaves_row(torch, xs, flush, what: str) -> dict:
+    """Kernel 4 on the list of bf16 leaves ``xs`` in one launch (a layer's
+    K and V, whisper's cross K/V of every layer, or gradients recorded in
+    a backward): held bit for bit against the per-leaf plain version and
+    against single-leaf launches, then timed out of a flushed L2 (a write
+    flush; the launch, the single-leaf launches, the library and a copy_
+    again after a read-only flush) beside the single-leaf launches of the
+    same leaves, the per-leaf plain version, the per-leaf library call
+    (``transpose(1, 2).contiguous()``), one contiguous ``copy_`` of the
+    same bytes and the first leaf alone; and the host time per call of the
+    list, of the first leaf alone and of the single-leaf calls, the device
+    held (:func:`enqueue_us`), with the first leaf's also as earlier runs
+    took it (:func:`host_us`, the device running behind).  The device spins
+    half a millisecond more for every 8 leaves before each timed run, so a
+    list's host enqueue (up to ~30 µs a leaf) stays out of the span."""
+    from repro_torch.kernels import launch as kl
+    from repro_torch.kernels import medusa_transpose as mt
+
+    xs = list(xs)
+    kl.reset_launch_counts()
+    got = mt.medusa_transpose_many(xs)
+    torch.cuda.synchronize()
+    n = kl.launch_counts()["medusa_transpose_tiles"]
+    check(n == -(-len(xs) // mt.MAX_LEAVES),
+          f"transpose ({what}): {n} launches for {len(xs)} leaves")
+    err = 0
+    for i, (x, y) in enumerate(zip(xs, got)):
+        err = max(err, words_equal(torch, y, mt.medusa_transpose_plain(x),
+                                   f"transpose ({what}) leaf {i}"))
+        words_equal(torch, mt.medusa_transpose_tiles(x), y,
+                    f"transpose ({what}) leaf {i}, single-leaf launch")
+    words_equal(torch, mt.medusa_transpose_many(xs)[-1], got[-1],
+                f"transpose ({what}) launched again")
+    del got
+    nbytes = sum(x.numel() * x.element_size() for x in xs)
+    src = torch.empty(nbytes, dtype=torch.uint8, device=xs[0].device)
+    dst = torch.empty_like(src)
+
+    def many():
+        mt.medusa_transpose_many(xs)
+
+    def single():
+        for x in xs:
+            mt.medusa_transpose_tiles(x)
+
+    def plain():
+        for x in xs:
+            mt.medusa_transpose_plain(x)
+
+    def library():
+        for x in xs:
+            x.transpose(1, 2).contiguous()
+
+    def one():
+        mt.medusa_transpose_tiles(xs[0])
+
+    def copy():
+        dst.copy_(src)
+
+    shape = list(xs[0].shape)
+    same = all(list(x.shape) == shape for x in xs)
+    spin = SPIN_CYCLES * (1 + len(xs) // 8)
+
+    def timed(fn, read_flush=False):
+        return time_ms(torch, fn, flush=flush, read_flush=read_flush,
+                       spin=spin)
+    row = dict(
+        max_abs_err=err, bytes=2 * nbytes, leaves=len(xs),
+        ms=timed(many), single_ms=timed(single), plain_ms=timed(plain),
+        library_ms=timed(library), copy_ms=timed(copy),
+        one_leaf_ms=timed(one), ms_read_flush=timed(many, True),
+        single_ms_read_flush=timed(single, True),
+        library_ms_read_flush=timed(library, True),
+        copy_ms_read_flush=timed(copy, True),
+        host_us_per_call=enqueue_us(torch, many),
+        host_us_one_leaf=enqueue_us(torch, one),
+        host_us_single=enqueue_us(torch, single),
+        host_us_one_leaf_behind=host_us(torch, one),
+        shape=(f"{len(xs)} x {shape} bf16 ({what})" if same else
+               f"{len(xs)} leaves bf16 ({what})"))
+    set_bound(row)
+    print(f"transpose ({what}): {len(xs)} leaves, {nbytes} bytes each way "
+          f"(bound {row['bound_ms']:.4f} ms): one launch {row['ms']:.4f} ms, "
+          f"single-leaf launches {row['single_ms']:.4f}, library "
+          f"{row['library_ms']:.4f}, a contiguous copy_ of the same bytes "
+          f"{row['copy_ms']:.4f}, the first leaf alone "
+          f"{row['one_leaf_ms']:.4f} after a write flush; "
+          f"{row['ms_read_flush']:.4f}, {row['single_ms_read_flush']:.4f}, "
+          f"{row['library_ms_read_flush']:.4f} and "
+          f"{row['copy_ms_read_flush']:.4f} after a read-only flush; host us "
+          f"per call {row['host_us_per_call']:.2f} (the first leaf alone "
+          f"{row['host_us_one_leaf']:.2f}, single-leaf calls "
+          f"{row['host_us_single']:.2f}; the first leaf with the device "
+          f"running behind {row['host_us_one_leaf_behind']:.2f})",
+          flush=True)
+    return row
 
 
 def scatter_edges(torch, gen, words, dev) -> None:
@@ -786,37 +1008,11 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     return rows
 
 
-def leaf_row(torch, words, shape, flush, what: str) -> dict:
-    """Kernel 4 at one served K/V leaf ``shape`` (bf16): held bit for bit
-    against its plain version and a second launch, then timed out of a
-    flushed L2 beside the plain version and one library call."""
-    return tensor_row(torch, words(shape, torch.int16).view(torch.bfloat16),
-                      flush, what)
-
-
-def tensor_row(torch, x, flush, what: str) -> dict:
-    """Kernel 4 on the bf16 tensor ``x`` (a served leaf, or a gradient
-    recorded in a backward): held bit for bit against its plain version
-    and a second launch, then timed out of a flushed L2 beside the plain
-    version and one library call."""
-    from repro_torch.kernels import medusa_transpose as mt
-
-    shape = tuple(x.shape)
-    got = mt.medusa_transpose_tiles(x)
-    err = words_equal(torch, got, mt.medusa_transpose_plain(x),
-                      f"transpose ({what})")
-    words_equal(torch, mt.medusa_transpose_tiles(x), got,
-                f"transpose ({what}) launched again")
-    dst = torch.empty_like(x)
-    return dict(
-        max_abs_err=err, bytes=2 * x.numel() * 2,
-        ms=time_ms(torch, lambda: mt.medusa_transpose_tiles(x), flush=flush),
-        plain_ms=time_ms(torch, lambda: mt.medusa_transpose_plain(x),
-                         flush=flush),
-        library_ms=time_ms(torch, lambda: x.transpose(1, 2).contiguous(),
-                           flush=flush),
-        copy_ms=time_ms(torch, lambda: dst.copy_(x), flush=flush),
-        shape=f"{list(shape)} bf16 ({what})")
+def pair_row(torch, words, shape, flush, what: str, n: int = 2) -> dict:
+    """Kernel 4 at ``n`` served K/V leaves of ``shape`` (bf16) in one
+    launch (:func:`leaves_row`)."""
+    return leaves_row(torch, [words(shape, torch.int16).view(torch.bfloat16)
+                              for _ in range(n)], flush, what)
 
 
 def kernels_phase(torch, dev):
@@ -862,8 +1058,9 @@ def kernels_phase(torch, dev):
         bit_equal(torch, mt.burst_network_tiles(got_e, tile_e.shape[0]),
                   tile_e, f"burst edge {what} applied twice")
 
-    # -- the KV layout engine: the kernels line carries the ring leaf (58 of
-    #    the 68 launches per step), the full-attention leaf is printed ------
+    # -- the KV layout engine: the kernels line carries the ring layer's
+    #    K/V pair (29 of the 34 launches per step), the full-attention
+    #    layer's is printed ------------------------------------------------
     leaves = transpose_rows(torch, dev, gen, words)
     rows[ONE_SHOT] = {"medusa_transpose_tiles": leaves["L"]}
 
@@ -871,9 +1068,9 @@ def kernels_phase(torch, dev):
     #    served pool (N=4, head_dim 128; its dense tile is the one the pad
     #    layout and the gather-after-burst path move), kernels 1-2 at
     #    gemma3-12b's (N=8, head_dim 256: its engine runs the fused gather
-    #    only); kernel 4 at starcoder2-15b's paged-fallback leaf (the
+    #    only); kernel 4 at starcoder2-15b's paged-fallback K/V pair (the
     #    off-geometry fabric's N=64 rounds the depth to 1600) and at
-    #    gemma3-12b's ring leaf (80 of its 96 launches a step) -------------
+    #    gemma3-12b's ring layer's pair (40 of its 48 launches a step) -----
     rows["starcoder2-15b engine"] = burst_rows(
         torch, gen, words, "starcoder2-15b", STARCODER_PROMPT, STARCODER_GEN)
     g12 = burst_rows(torch, gen, words, "gemma3-12b", GEMMA_PROMPT,
@@ -882,12 +1079,12 @@ def kernels_phase(torch, dev):
     rows["gemma3-12b engine"] = g12
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     t_fallback = -(-(STARCODER_PROMPT + STARCODER_SHORT) // 64) * 64
-    rows[SC_FALLBACK] = {"medusa_transpose_tiles": leaf_row(
+    rows[SC_FALLBACK] = {"medusa_transpose_tiles": pair_row(
         torch, words, (ENGINE_SLOTS, t_fallback, 4, 128), flush,
-        "starcoder2-15b K/V leaf")}
-    rows[ONE_SHOT_12B] = {"medusa_transpose_tiles": leaf_row(
+        "starcoder2-15b layer's K and V")}
+    rows[ONE_SHOT_12B] = {"medusa_transpose_tiles": pair_row(
         torch, words, (GEMMA_BATCH, 1024, 8, 256), flush,
-        "gemma3-12b ring leaf")}
+        "gemma3-12b ring layer's K and V")}
     del flush
     torch.cuda.synchronize()
     for path, name, r in ([(p, k, r) for p, by in rows.items()
@@ -1494,13 +1691,14 @@ def gemma_phase(torch, dev, rows, with_profile: bool):
           f"initialised in {time.perf_counter() - t0:.1f}s", flush=True)
     prompt = torch.as_tensor(prompts, device=dev)
 
-    # (a) one-shot: per-layer decode, 2 layout-engine launches per layer
+    # (a) one-shot: per-layer decode, one layout-engine launch per layer
+    #     for its K and V
     mt.reset_launch_counts()
     t0 = time.perf_counter()
     toks, logits, steps = generate(torch, api, params, prompt, cfg, g, s + g)
     wall = time.perf_counter() - t0
     counts = mt.launch_counts()
-    per_step = 2 * cfg.n_layers
+    per_step = cfg.n_layers
     want = {**ZERO_LAUNCHES, "medusa_transpose_tiles": per_step * g}
     check(counts == want, f"gemma3 one-shot: launches {counts} != {want}")
     rows[ONE_SHOT]["medusa_transpose_tiles"]["launches"] = counts[
@@ -1676,7 +1874,7 @@ def starcoder2_phase(torch, dev, rows) -> None:
          STARCODER_SHORT, {}, {}),
         ("f", "medusa fabric off the geometry (N=64, W_acc=8)",
          off_geometry, STARCODER_SHORT, {},
-         {"medusa_transpose_tiles": 2 * cfg.n_layers * short}))
+         {"medusa_transpose_tiles": cfg.n_layers * short}))
     main = None
     for key, what, pcfg, gen_len, kw, want in paths:
         label = f"starcoder2-15b engine ({key}) {what}"
@@ -1706,7 +1904,7 @@ def gemma3_12b_phase(torch, dev, rows) -> None:
     heads = N ports, head_dim 256, d_ff 15360, vocab 262144, window 1024):
     4 requests of 1536 tokens through the engine with the fused gather
     (kernels 1-2 at N=8), then the one-shot ``greedy_generate`` of the same
-    prompts with the kernels on (kernel 4, 96 launches a step).  The two
+    prompts with the kernels on (kernel 4, 48 launches a step).  The two
     must serve the same tokens."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import medusa_transpose as mt
@@ -1730,7 +1928,7 @@ def gemma3_12b_phase(torch, dev, rows) -> None:
     toks, logits, steps = generate(torch, api, params, prompt, cfg, g - 1,
                                    s + g)
     counts = mt.launch_counts()
-    per_step = 2 * cfg.n_layers
+    per_step = cfg.n_layers
     want = {**ZERO_LAUNCHES, "medusa_transpose_tiles": per_step * (g - 1)}
     check(counts == want, f"gemma3-12b one-shot: launches {counts} != "
           f"{want}")
@@ -2418,7 +2616,7 @@ def moe_phase(torch, dev, rows) -> None:
     shot, logits, times = generate(torch, api, params, prompt, cfg, steps,
                                    s + g)
     counts = mt.launch_counts()
-    want = {**ZERO_LAUNCHES, "medusa_transpose_tiles": 2 * n_moe * steps,
+    want = {**ZERO_LAUNCHES, "medusa_transpose_tiles": n_moe * steps,
             "gather_burst_network_tiles": n_moe * (steps + 1),
             "scatter_burst_network_tiles": n_moe * (steps + 1)}
     check(counts == want, f"{MOE_ARCH} one-shot: launches {counts} != {want}")
@@ -2508,24 +2706,24 @@ def families_phase(torch, dev, rows) -> None:
     from seed 0, only the depth of the runs cut.  (a) internvl2-1b (24
     layers, 2 KV heads = N ports of 64 lanes): the one-shot of 2 rows of
     256 patch embeddings from the data stub and 192 text tokens, 32 decode
-    steps, kernel 4 exactly 48 launches a step on its [2, 480, 2, 64]
+    steps, kernel 4 exactly 24 launches a step on its [2, 480, 2, 64]
     leaves, the tokens and every step's logits bit-identical with the
     kernels off and on the crossbar fabric; the engine, 4 requests of 448
     text tokens + 64 on pages of 64 with the fused gather, kernels 1-2 at 2
     launches a step and 2 a wave, the tokens equal with the kernels off and
     on the crossbar.  (b) recurrentgemma-2b (26 layers ``RRL``, window
     2048): the one-shot of 2 rows of 3072 tokens (past the window: the
-    prefill takes the ring roll and decode wraps), 32 steps, kernel 4 16
-    launches a step on its [2, 2048, 1, 256] ring leaves, the same tokens
-    and logits with the kernels off; the engine, 4 requests of 3072 + 32
+    prefill takes the ring roll and decode wraps), 32 steps, no kernel-4
+    launch (its [2, 2048, 1, 256] ring leaves have one KV head, so their
+    port-major form is a view), the same tokens and logits with the
+    kernels off; the engine, 4 requests of 3072 + 32
     on 4 slots, no pool and no kernel (its ring layers attend per row).
     (c) mamba2-780m (48 ``M`` layers): the one-shot of 2 rows of 1000
     tokens (off the 256 chunk), 32 steps, and the engine, 4 requests of
     1000 + 32: no kernel runs.  Each engine's agreement with its one-shot
     is printed.  (d) :func:`families_card_vs_cpu`.  (e) Kernels 1, 2 and
     4 at the new shapes, held bit for bit and timed (paths
-    ``internvl2-1b engine``, ``internvl2-1b one-shot``,
-    ``recurrentgemma-2b one-shot``)."""
+    ``internvl2-1b engine``, ``internvl2-1b one-shot``)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops
 
@@ -2544,7 +2742,7 @@ def families_phase(torch, dev, rows) -> None:
     extra = {"patch_embeds": torch.as_tensor(batch["patch_embeds"],
                                              device=dev)}
     t_vlm = p + VLM_TEXT + g
-    per_step = 2 * cfg.n_layers
+    per_step = cfg.n_layers
     label = f"{VLM_ARCH} one-shot ({p} patches + {VLM_TEXT} tokens)"
     toks, logits, counts = one_shot(
         torch, cfg, params, prompt, g, t_vlm, label,
@@ -2603,14 +2801,15 @@ def families_phase(torch, dev, rows) -> None:
         prompts = SyntheticLM(cfg, batch=ENGINE_SLOTS, seq=s,
                               seed=0).batch_at(0)["tokens"]
         prompt = torch.as_tensor(prompts[:b], device=dev)
+        # recurrentgemma-2b's ring layers have one KV head: their port-major
+        # K/V are views of the ring, so kernel 4 launches nowhere here
         rings = cfg.layer_types().count("L")
-        want = ({"medusa_transpose_tiles": 2 * rings * g} if rings else {})
+        check(not rings or cfg.n_kv_heads == 1,
+              f"{arch}: {cfg.n_kv_heads} KV heads, not the one-head ring")
         label = f"{arch} one-shot (prompt {s})"
         toks, logits, counts = one_shot(torch, cfg, params, prompt, g, s + g,
-                                        label, want)
+                                        label, {})
         if rings:
-            rows[RG_ONE_SHOT] = {"medusa_transpose_tiles": {
-                "launches": counts["medusa_transpose_tiles"]}}
             ops.use_kernels(False)
             try:
                 toks_off, logits_off, _ = one_shot(
@@ -2623,8 +2822,9 @@ def families_phase(torch, dev, rows) -> None:
             same_steps(torch, logits, logits_off,
                        f"{arch} one-shot, kernels off")
             print(f"{arch} one-shot: tokens and all {g} steps' logits "
-                  f"bit-identical with the kernels on and off; "
-                  f"{2 * rings} layout-engine launches a step", flush=True)
+                  f"bit-identical with the kernels on and off; no "
+                  f"layout-engine launch ({rings} ring layers of one KV "
+                  f"head: their port-major K/V are views)", flush=True)
             del logits_off
         else:
             print(f"{arch} one-shot: no kernel runs on this path (no "
@@ -2655,21 +2855,15 @@ def families_phase(torch, dev, rows) -> None:
     del vlm["burst_network_tiles"]              # not on this path
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     new = {f"{VLM_ARCH} engine": vlm,
-           VLM_ONE_SHOT: {"medusa_transpose_tiles": leaf_row(
+           VLM_ONE_SHOT: {"medusa_transpose_tiles": pair_row(
                torch, words, (b, t_vlm, 2, 64), flush,
-               f"{VLM_ARCH} K/V leaf")},
-           RG_ONE_SHOT: {"medusa_transpose_tiles": leaf_row(
-               torch, words, (b, 2048, 1, 256), flush,
-               f"{RG_ARCH} ring leaf")}}
+               f"{VLM_ARCH} layer's K and V")}}
     del flush
     for path, by_kernel in new.items():
         for name, r in by_kernel.items():
             rows[path][name].update(r)
             set_bound(rows[path][name])
             print_row(name, path, rows[path][name])
-            if "copy_ms" in r:
-                print(f"  ({path}: a contiguous copy_ of the same bytes "
-                      f"{r['copy_ms']:.4f} ms)", flush=True)
 
     families_card_vs_cpu(torch, dev)
     print(f"families phase: {time.perf_counter() - t_phase:.1f}s wall; "
@@ -3615,23 +3809,24 @@ def churn_card_vs_cpu(torch, dev) -> None:
 
 @contextlib.contextmanager
 def transpose_operands(seen: dict):
-    """While open, record into ``seen["backward"]`` (cloned) the input of
-    the first layout-engine launch made inside an autograd backward (a
-    gradient on its way back through kernel 4)."""
+    """While open, record into ``seen["backward"]`` (cloned) the leaves of
+    the first layout-engine call made inside an autograd backward (the
+    gradients on their way back through kernel 4)."""
     from repro_torch.kernels import launch as kl
     from repro_torch.kernels import medusa_transpose as mt
 
-    orig = mt.medusa_transpose_tiles
+    orig = mt.medusa_transpose_many
 
-    def spy(x):
+    def spy(xs):
+        xs = list(xs)
         if kl._IN_BACKWARD[0] and "backward" not in seen:
-            seen["backward"] = x.clone()
-        return orig(x)
-    mt.medusa_transpose_tiles = spy
+            seen["backward"] = [x.clone() for x in xs]
+        return orig(xs)
+    mt.medusa_transpose_many = spy
     try:
         yield seen
     finally:
-        mt.medusa_transpose_tiles = orig
+        mt.medusa_transpose_many = orig
 
 
 def run_train_cli(torch, args):
@@ -3942,17 +4137,19 @@ def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
     """whisper-medium at full width and depth (24 encoder + 24 decoder
     layers, d_model 1024, 16 KV heads = N ports of 64 lanes; random bf16
     weights from seed 0).  (a) The one-shot: 2 rows of the data stub's
-    1500 frames and 64 tokens, 32 decode steps; kernel 4 exactly 48
-    launches at prefill (each decoder layer's cross K and V made
-    port-major) and 48 a decode step (the self-attention cache read); the
-    tokens and every step's logits bit-identical with the kernels off and
-    on the crossbar fabric.  (b) Training at 2 x 64: one loss and its
-    gradients with the kernels on (48 forward and 48 backward kernel-4
-    launches) and off, within 1e-2 of each other (bf16); then 3 train
-    steps, 48 forward and 48 backward launches each.  (c) Kernel 4 held
-    and timed at the cross K/V leaf, the self cache leaf and a gradient
-    recorded in the backward (paths ``whisper-medium prefill``,
-    ``decode``, ``train``, ``train backward``)."""
+    1500 frames and 64 tokens, 32 decode steps; kernel 4 exactly one
+    launch at prefill (every decoder layer's cross K and V made port-major
+    together, 48 leaves) and 24 a decode step (each layer's self-attention
+    cache, K and V in one launch); the tokens and every step's logits
+    bit-identical with the kernels off and on the crossbar fabric.  (b)
+    Training at 2 x 64: one loss and its gradients with the kernels on
+    (one forward and one backward kernel-4 launch, 48 leaves each) and
+    off, within 1e-2 of each other (bf16); then 3 train steps, one forward
+    and one backward launch each.  (c) Kernel 4 held and timed at the
+    48-leaf cross K/V list (prefill and training: the same leaves), the
+    self cache's pair and the 48 gradients recorded in the backward (paths
+    ``whisper-medium prefill``, ``decode``, ``train``, ``train
+    backward``)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import medusa_transpose as mt
     from repro_torch.kernels import ops
@@ -3961,7 +4158,7 @@ def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
     t_phase = time.perf_counter()
     cfg, params = load_model(torch, dev, WHISPER_ARCH)
     b, s, g = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN
-    per = 2 * cfg.n_layers
+    per = cfg.n_layers                  # launches a decode step
     kernel4 = "medusa_transpose_tiles"
     batch = SyntheticLM(cfg, batch=b, seq=s, seed=0).batch_at(0)
     check(batch["frames"].shape == (b, cfg.encoder_seq, cfg.d_model),
@@ -3975,13 +4172,13 @@ def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
     with torch.no_grad():
         api.prefill_fn(params, {"tokens": prompt, **extra}, cfg, s + g)
     torch.cuda.synchronize()
-    check(mt.launch_counts() == {**ZERO_LAUNCHES, kernel4: per},
+    check(mt.launch_counts() == {**ZERO_LAUNCHES, kernel4: 1},
           f"{WHISPER_ARCH} prefill: launches {mt.launch_counts()}")
     label = f"{WHISPER_ARCH} one-shot ({cfg.encoder_seq} frames + {s} tokens)"
     toks, logits, counts = one_shot(torch, cfg, params, prompt, g, s + g,
-                                    label, {kernel4: per * (g + 1)}, extra)
-    rows[WHISPER_PREFILL] = {kernel4: {"launches": per}}
-    rows[WHISPER_DECODE] = {kernel4: {"launches": counts[kernel4] - per}}
+                                    label, {kernel4: 1 + per * g}, extra)
+    rows[WHISPER_PREFILL] = {kernel4: {"launches": 1}}
+    rows[WHISPER_DECODE] = {kernel4: {"launches": counts[kernel4] - 1}}
     ops.use_kernels(False)
     try:
         toks_off, logits_off, _ = one_shot(
@@ -3999,7 +4196,7 @@ def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
         same_steps(torch, logits, l_o, f"{WHISPER_ARCH} one-shot, {what}")
     print(f"{WHISPER_ARCH} one-shot: tokens and all {g} steps' logits "
           f"bit-identical with the kernels on, off and on the crossbar "
-          f"fabric; layout-engine launches {per} at prefill and {per} a "
+          f"fabric; layout-engine launches 1 at prefill and {per} a "
           f"decode step", flush=True)
     del logits, logits_off, logits_x
 
@@ -4012,10 +4209,13 @@ def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
         loss_on, g_on = loss_and_grads(torch, params, tb, cfg)
     torch.cuda.synchronize()
     counts, back = mt.launch_counts(), mt.backward_launch_counts()
-    check(counts == {**ZERO_LAUNCHES, kernel4: 2 * per}
-          and back == {**ZERO_LAUNCHES, kernel4: per},
+    check(counts == {**ZERO_LAUNCHES, kernel4: 2}
+          and back == {**ZERO_LAUNCHES, kernel4: 1},
           f"{WHISPER_ARCH} loss and gradients: launches {counts}, backward "
-          f"{back}; want {per} forward and {per} backward")
+          f"{back}; want 1 forward and 1 backward")
+    check(len(seen["backward"]) == 2 * cfg.n_layers,
+          f"{WHISPER_ARCH}: the backward launch moved "
+          f"{len(seen['backward'])} gradients, not {2 * cfg.n_layers}")
     ops.use_kernels(False)
     try:
         loss_off, g_off = loss_and_grads(torch, params, tb, cfg)
@@ -4034,17 +4234,17 @@ def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
     print(f"{WHISPER_ARCH} loss and gradients at {b} x {TRAIN_SEQ}: loss "
           f"{float(loss_on):.4f} with the kernels on, {float(loss_off):.4f} "
           f"off; every gradient within {max(rel):.2e} of the kernels-off one "
-          f"(relative, tolerance 1e-2); layout-engine launches {per} forward, "
-          f"{per} backward", flush=True)
+          f"(relative, tolerance 1e-2); layout-engine launches 1 forward, "
+          f"1 backward ({2 * cfg.n_layers} leaves each)", flush=True)
     del g_on, g_off
     counts, back, _, _ = run_steps(torch, cfg, params, data,
                                    WHISPER_TRAIN_STEPS,
                                    f"train {WHISPER_ARCH}")
     st = WHISPER_TRAIN_STEPS
-    check(counts == {**ZERO_LAUNCHES, kernel4: 2 * per * st}
-          and back == {**ZERO_LAUNCHES, kernel4: per * st},
+    check(counts == {**ZERO_LAUNCHES, kernel4: 2 * st}
+          and back == {**ZERO_LAUNCHES, kernel4: st},
           f"train {WHISPER_ARCH}: launches {counts}, backward {back}")
-    rows[WHISPER_TRAIN] = {kernel4: {"launches": per * st}}
+    rows[WHISPER_TRAIN] = {kernel4: {"launches": st}}
     rows[WHISPER_BACKWARD] = {kernel4: {"launches": back[kernel4]}}
     if with_profile:
         profile_train(torch, cfg, params, data, f"{WHISPER_ARCH} train step",
@@ -4062,16 +4262,16 @@ def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
                              device=dev, dtype=torch.int64).to(dtype)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    new = {WHISPER_PREFILL: leaf_row(torch, words, (b, cfg.encoder_seq, hkv,
-                                                    hd), flush,
-                                     "cross K/V leaf"),
-           WHISPER_DECODE: leaf_row(torch, words, (b, s + g, hkv, hd), flush,
-                                    "self-attention cache leaf"),
-           WHISPER_TRAIN: leaf_row(torch, words, (b, cfg.encoder_seq, hkv,
-                                                  hd), flush,
-                                   "cross K/V leaf, training"),
-           WHISPER_BACKWARD: tensor_row(torch, seen["backward"], flush,
-                                        "cross K/V gradient")}
+    cross = pair_row(torch, words, (b, cfg.encoder_seq, hkv, hd), flush,
+                     f"{WHISPER_ARCH} cross K/V of every layer",
+                     n=2 * cfg.n_layers)
+    new = {WHISPER_PREFILL: cross,
+           WHISPER_DECODE: pair_row(torch, words, (b, s + g, hkv, hd), flush,
+                                    f"{WHISPER_ARCH} self cache's K and V"),
+           WHISPER_TRAIN: dict(cross),      # the same leaves in training
+           WHISPER_BACKWARD: leaves_row(torch, seen["backward"], flush,
+                                        f"{WHISPER_ARCH} cross K/V "
+                                        f"gradients")}
     del flush, seen
     for path, r in new.items():
         rows[path][kernel4].update(r)
@@ -4233,9 +4433,12 @@ def main() -> None:
                          "library_ms": r["library_ms"],
                          "path": path, "shape": r["shape"],
                          **{key: r[key] for key in (
-                             "matmul_route", "ms_read_flush",
+                             "matmul_route", "leaves", "ms_read_flush",
                              "library_ms_read_flush", "host_us_per_call",
-                             "copy_ms", "copy_ms_read_flush")
+                             "copy_ms", "copy_ms_read_flush", "single_ms",
+                             "single_ms_read_flush", "one_leaf_ms",
+                             "host_us_one_leaf", "host_us_single",
+                             "host_us_one_leaf_behind")
                              if key in r}})
     check({e["name"] for e in line} == set(KERNELS),
           "the kernels line misses a kernel")

@@ -43,6 +43,16 @@ def pm_to_banked(pm: torch.Tensor, n: int) -> torch.Tensor:
     return pm.reshape(n, l // n, n, d).permute(1, 0, 2, 3)
 
 
+def _kv_crossbar(c: torch.Tensor) -> torch.Tensor:
+    """``[B, T, Hkv, D] → [B, Hkv, T, D]`` through an explicit index tensor
+    (the crossbar's KV layout)."""
+    b, t, hkv, d = c.shape
+    idx = (torch.arange(hkv, device=c.device)[:, None]
+           + torch.arange(t, device=c.device)[None, :] * hkv)
+    return c.reshape(b, t * hkv, d).index_select(
+        1, idx.reshape(-1)).reshape(b, hkv, t, d)
+
+
 @dataclasses.dataclass(frozen=True)
 class Fabric:
     """A W_line ↔ N x W_acc memory-movement fabric with selectable network."""
@@ -114,30 +124,34 @@ class Fabric:
                 lead + (c, r))
         return _t.transpose_oracle(x, x.ndim - 2, x.ndim - 1).contiguous()
 
-    def kv_port_major(self, c: torch.Tensor) -> torch.Tensor:
+    def kv_port_major(self, c):
         """KV-cache layout engine: line-major ``[B, T, Hkv, D]`` (one
         timestep = one wide line across heads) → port-major ``[B, Hkv, T,
-        D]`` (one deep-narrow stream per head).  On the medusa fabric this
-        is :func:`repro_torch.kernels.ops.kv_line_to_port`: one
-        layout-engine kernel launch for the whole batch (the reference
-        vmaps one kernel call over B), or the plain swap with the kernels
-        off; the crossbar gathers through an explicit index tensor; the
-        oracle impl takes the plain swap.  Each result is contiguous.  The
-        ``fused`` fabric has no layout engine: its consumers contract the
-        line-major cache directly, and asking it to bank one raises."""
+        D]`` (one deep-narrow stream per head).  ``c`` is one leaf (→ its
+        port-major leaf) or a sequence of leaves (→ the list of them).  On
+        the medusa fabric this is :func:`repro_torch.kernels.ops.
+        kv_line_to_port`: one layout-engine kernel launch for every leaf
+        and the whole batch (the reference vmaps one kernel call over B,
+        once per leaf), or the plain swap with the kernels off; a one-head
+        leaf (``Hkv == 1``) comes back as a view of itself with no launch.
+        The crossbar gathers each leaf through an explicit index tensor;
+        the oracle impl takes each leaf's plain swap.  Each result is
+        contiguous.  The ``fused`` fabric has no layout engine: its
+        consumers contract the line-major cache directly, and asking it to
+        bank one raises."""
         if self.impl == "fused":
             raise ValueError(
                 "the fused fabric banks no KV: its consumers attend over the "
                 "line-major cache (models.common.cached_attention)")
+        many = not isinstance(c, torch.Tensor)
+        leaves = list(c) if many else [c]
         if self.impl == "medusa":
-            return kops.kv_line_to_port(c)
-        if self.impl == "crossbar":
-            b, t, hkv, d = c.shape
-            idx = (torch.arange(hkv, device=c.device)[:, None]
-                   + torch.arange(t, device=c.device)[None, :] * hkv)
-            return c.reshape(b, t * hkv, d).index_select(
-                1, idx.reshape(-1)).reshape(b, hkv, t, d)
-        return mt.medusa_transpose_plain(c)
+            out = kops.kv_line_to_port(leaves)
+        elif self.impl == "crossbar":
+            out = [_kv_crossbar(x) for x in leaves]
+        else:
+            out = mt.medusa_transpose_many_plain(leaves)
+        return out if many else out[0]
 
     # -- first-class bursts (the scheduler's hot path) -------------------------
     @property

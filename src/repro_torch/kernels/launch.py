@@ -92,6 +92,12 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as its raw handle, without
+    the ``torch.cuda.Stream`` object :func:`stream` builds."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with "

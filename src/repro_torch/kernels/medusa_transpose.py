@@ -9,9 +9,10 @@ Five CUDA kernels (sources in ``csrc/``) replace the Pallas kernels of
   scatter, in place (``csrc/scatter_burst.cu``);
 * :func:`burst_network_tiles` — the dense ``[N, N, W]`` burst, an
   involution serving both directions (``csrc/burst_network.cu``);
-* :func:`medusa_transpose_tiles` — the KV-cache layout engine, ``[B, R, C,
-  W] → [B, C, R, W]`` (``csrc/medusa_transpose.cu``), on the per-layer
-  decode path;
+* :func:`medusa_transpose_many` — the KV-cache layout engine, ``[B, R,
+  C, W] → [B, C, R, W]`` for a list of leaves in one launch
+  (``csrc/medusa_transpose.cu``), on the per-layer decode path, and
+  :func:`medusa_transpose_tiles`, the list of one;
 * :func:`read_network_tiles` — the read network on group tiles, line
   stream ``[L, N, W]`` → banked ``[L/N, N, N, W]`` (``csrc/read_network.cu``),
   behind ``ops.interconnect_read``.
@@ -32,6 +33,7 @@ went through the kernels.
 
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
@@ -210,9 +212,13 @@ def burst_network_tiles(tile: torch.Tensor, n_ports: int) -> torch.Tensor:
 # 4. the KV-cache layout engine (line-major → port-major)
 # ----------------------------------------------------------------------------
 
-_TRANSPOSE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
+# C signature: (descriptors: n x (in, out, B, R, C, row words) as long long,
+# n, row word bytes, stream)
+_TRANSPOSE_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+# leaves a launch: the kernel's descriptor table (csrc/medusa_transpose.cu
+# kMaxLeaves); a longer list launches once per this many
+MAX_LEAVES = 64
 
 
 def medusa_transpose_plain(x: torch.Tensor) -> torch.Tensor:
@@ -221,30 +227,107 @@ def medusa_transpose_plain(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-3, -2).contiguous()
 
 
+def medusa_transpose_many_plain(xs) -> list:
+    """Plain version of :func:`medusa_transpose_many`: the plain swap of
+    each leaf."""
+    return [medusa_transpose_plain(x) for x in xs]
+
+
+def check_leaves(xs, what: str) -> list:
+    """``xs`` as a list of leaves ``[R, C, W]`` or ``[B, R, C, W]`` of one
+    dtype on one device, each contiguous; raises otherwise."""
+    xs = list(xs)
+    if not xs:
+        raise ValueError(f"{what}: no leaves")
+    dtype, device = xs[0].dtype, xs[0].device
+    for i, x in enumerate(xs):
+        if x.ndim not in (3, 4):
+            raise ValueError(f"{what}: leaf {i} {tuple(x.shape)} is not [R, "
+                             f"C, W] or [B, R, C, W]")
+        if x.dtype != dtype:
+            raise TypeError(f"{what}: leaf {i} is {x.dtype}, leaf 0 "
+                            f"{dtype}")
+        if x.device != device:
+            raise ValueError(f"{what}: leaf {i} on {x.device}, leaf 0 on "
+                             f"{device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: leaf {i} must be contiguous")
+    return xs
+
+
+def identity_view(x: torch.Tensor):
+    """The swapped leaf as a view of ``x`` when the swap moves nothing
+    (``R == 1`` or ``C == 1``: ``[B, R, C, W] → [B, C, R, W]`` is then the
+    identity on memory), else None.  The view is contiguous, holds the
+    plain swap's values and aliases ``x``."""
+    *lead, r, c, w = x.shape
+    return x.view(*lead, c, r, w) if r == 1 or c == 1 else None
+
+
+def medusa_transpose_many(xs) -> list:
+    """Swap the two leading axes of every leaf in ``xs`` (``[R, C, W] →
+    [C, R, W]``, ``[B, R, C, W] → [B, C, R, W]``), all of them in one
+    launch: the leaves share a dtype and a device, are contiguous, and may
+    each have their own shape.  Above :data:`MAX_LEAVES` leaves the list
+    launches once per that many, each launch counted.  A leaf whose swap
+    is the identity (``R == 1`` or ``C == 1``) comes back as a view of
+    itself (:func:`identity_view`) and costs no launch; every other result
+    is a new contiguous tensor.  CPU leaves take the plain version.
+    Raises ``ValueError`` on an empty list, leaves on other devices, a
+    leaf of another rank or a non-contiguous leaf, ``TypeError`` on mixed
+    dtypes or an element that is not 1, 2, 4 or 8 bytes.
+
+    The kernel moves rows of the widest word (up to 16 bytes) that divides
+    every moving leaf's row bytes and every pointer.  The wrapper's host
+    time is one pass over the leaves: outputs by ``new_empty``, the
+    descriptors packed into one ``array``."""
+    xs = check_leaves(xs, "medusa_transpose_many")
+    x0 = xs[0]
+    if not x0.is_cuda:
+        if x0.device.type == "cpu":
+            return medusa_transpose_many_plain(xs)
+        raise ValueError(f"medusa_transpose_many: leaves on {x0.device}, "
+                         f"not a CUDA device")
+    elt = kl.word_bytes(x0, "medusa_transpose_many")
+    out, moving, wb = [], [], 16
+    for x in xs:
+        y = identity_view(x)
+        if y is None:
+            *lead, r, c, w = x.shape
+            y = x.new_empty((*lead, c, r, w))
+            row = w * elt
+            if row and y.numel():
+                src, dst = x.data_ptr(), y.data_ptr()
+                while row % wb or src % wb or dst % wb:
+                    wb //= 2
+                moving.append((src, dst, lead[0] if lead else 1, r, c, row))
+        out.append(y)
+    for i in range(0, len(moving), MAX_LEAVES):
+        _launch(moving[i:i + MAX_LEAVES], wb, x0.device)
+    return out
+
+
+def _launch(leaves, wb: int, device: torch.device) -> None:
+    """One launch of the layout engine over ``leaves``, each ``(src, dst,
+    B, R, C, row bytes)``, in row words of ``wb`` bytes."""
+    desc = array.array("q")
+    for src, dst, b, r, c, row in leaves:
+        desc.extend((src, dst, b, r, c, row // wb))
+    fn = kl.bind("medusa_transpose", "medusa_transpose_many", _TRANSPOSE_ARGS)
+    kl.count("medusa_transpose_tiles")
+    kl.raise_on(fn(desc.buffer_info()[0], len(leaves), wb,
+                   kl.raw_stream(device)), "medusa_transpose_many")
+
+
 def medusa_transpose_tiles(x: torch.Tensor) -> torch.Tensor:
     """Transpose the two leading axes of ``x [R, C, W]`` → ``[C, R, W]``,
     or of every batch row of ``x [B, R, C, W]`` → ``[B, C, R, W]`` in one
-    launch.  The kernel computes the permutation directly, so R and C may
+    launch: :func:`medusa_transpose_many` of the one leaf, on the same
+    kernel.  The kernel computes the permutation directly, so R and C may
     be any size (the reference's Pallas kernel wants multiples of a
-    power-of-two tile).  Returns a contiguous tensor of ``x``'s dtype."""
-    if x.ndim not in (3, 4):
-        raise ValueError(f"transpose wants [R, C, W] or [B, R, C, W], got "
-                         f"{tuple(x.shape)}")
-    r, c = x.shape[-3], x.shape[-2]
-    if x.device.type == "cpu":
-        return medusa_transpose_plain(x)
-    kl.check_cuda("medusa_transpose_tiles", x=x)
-    kl.word_bytes(x, "medusa_transpose_tiles")
-    out = torch.empty(x.shape[:-3] + (c, r, x.shape[-1]), dtype=x.dtype,
-                      device=x.device)
-    wb = kl.row_word(x, out)
-    b = x.shape[0] if x.ndim == 4 else 1
-    fn = kl.bind("medusa_transpose", "medusa_transpose", _TRANSPOSE_ARGS)
-    kl.count("medusa_transpose_tiles")
-    kl.raise_on(fn(x.data_ptr(), out.data_ptr(), b, r, c,
-                 x.shape[-1] * x.element_size() // wb, wb, kl.stream(x)),
-              "medusa_transpose_tiles")
-    return out
+    power-of-two tile).  Returns a contiguous tensor of ``x``'s dtype; when
+    ``R == 1`` or ``C == 1`` it is a view of ``x`` and nothing launches."""
+    return medusa_transpose_many((x,))[0]
 
 
 # ----------------------------------------------------------------------------

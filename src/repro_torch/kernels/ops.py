@@ -11,12 +11,15 @@ any device — the kernels-off arm, a caller's explicit choice, never a
 fallback.  The switch is this function only; no environment
 variable reads it.
 
-Kernel 4 is differentiable: :func:`transpose_rc` of a tensor that requires
-grad (with grad enabled) goes through :class:`_TransposeRC`, whose
-backward is the same movement with the two axes exchanged — the layout
-kernel again on a CUDA gradient.  The kernels' outputs carry no
-``grad_fn`` of their own, so without it a training forward through the
-layout engine would cut its gradient silently.
+Kernel 4 moves a list of leaves in one launch (:func:`transpose_many`)
+and is differentiable: leaves that require grad (with grad enabled) go
+through :class:`_TransposeRC`, whose backward is the same movement with
+the two axes exchanged — one layout-kernel launch on all the CUDA
+gradients.  The kernels' outputs carry no ``grad_fn`` of their own, so
+without it a training forward through the layout engine would cut its
+gradient silently.  A leaf whose swap is the identity (``R == 1`` or ``C
+== 1``) comes back as a view of itself, before any autograd Function: a
+view is differentiable as it is.
 """
 
 from __future__ import annotations
@@ -45,42 +48,74 @@ def kernels_enabled() -> bool:
     return _USE_KERNELS
 
 
-def transpose_rc(x: torch.Tensor) -> torch.Tensor:
-    """Swap the two leading axes of ``x [R, C, W]`` → ``[C, R, W]`` (or of
-    each row of ``x [B, R, C, W]``, one launch for the batch) through the
-    layout-engine kernel.  The kernel computes the permutation for any R
-    and C, so the reference's power-of-two tile padding has nothing to do
-    here.  Kernels off: the plain swap.  Either way the result is
-    contiguous, so what consumes it sees the same strides.  An input that
-    requires grad (grad enabled) goes through :class:`_TransposeRC`; the
-    plain swap of the kernels-off arm is differentiable as it is."""
+def transpose_many(xs) -> list:
+    """Swap the two leading axes of every leaf of ``xs`` (``[R, C, W] → [C,
+    R, W]``, ``[B, R, C, W] → [B, C, R, W]``) through the layout-engine
+    kernel, all the leaves that move in one launch
+    (:func:`repro_torch.kernels.medusa_transpose.medusa_transpose_many`).
+    The kernel computes the permutation for any R and C, so the
+    reference's power-of-two tile padding has nothing to do here.  Kernels
+    off: the plain swap of each leaf.  Every result is contiguous, so what
+    consumes it sees the same strides.  With the kernels on, a leaf with
+    ``R == 1`` or ``C == 1`` comes back as a view of itself with no launch:
+    it aliases its input, so a caller consumes it before it writes that
+    input again.  Leaves that require grad (grad enabled) go through
+    :class:`_TransposeRC`; the plain swap of the kernels-off arm and the
+    identity views are differentiable as they are."""
     if not _USE_KERNELS:
-        return mt.medusa_transpose_plain(x)
-    if x.requires_grad and torch.is_grad_enabled():
-        return _TransposeRC.apply(x)
-    return mt.medusa_transpose_tiles(x)
+        return mt.medusa_transpose_many_plain(xs)
+    xs = list(xs)
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return mt.medusa_transpose_many(xs)
+    out = [mt.identity_view(x)
+           for x in mt.check_leaves(xs, "transpose_many")]
+    moving = [x for x, y in zip(xs, out) if y is None]
+    if moving:
+        moved = iter(_TransposeRC.apply(*moving))
+        out = [next(moved) if y is None else y for y in out]
+    return out
+
+
+def transpose_rc(x: torch.Tensor) -> torch.Tensor:
+    """:func:`transpose_many` of the one leaf ``x [R, C, W]`` (→ ``[C, R,
+    W]``) or ``x [B, R, C, W]`` (→ ``[B, C, R, W]``, one launch for the
+    batch)."""
+    return transpose_many((x,))[0]
 
 
 class _TransposeRC(torch.autograd.Function):
-    """Kernel 4 under autograd: the forward is the layout kernel, the
-    backward the layout kernel on the gradient (``[..., C, R, W] → [...,
-    R, C, W]``), counted as a backward launch."""
+    """Kernel 4 under autograd, on a list of leaves: the forward is one
+    layout-kernel launch on all of them, the backward one launch on all
+    the gradients that arrived (``[..., C, R, W] → [..., R, C, W]``),
+    counted as a backward launch.  An output whose gradient is None gives
+    its input a None gradient, as the plain swap does; an input that does
+    not require grad gets a non-differentiable output."""
 
     @staticmethod
-    def forward(ctx, x):
-        return mt.medusa_transpose_tiles(x)
+    def forward(ctx, *xs):
+        ctx.set_materialize_grads(False)
+        out = mt.medusa_transpose_many(xs)
+        ctx.mark_non_differentiable(*[y for y, need in zip(
+            out, ctx.needs_input_grad) if not need])
+        return tuple(out)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
+        live = [g.contiguous() for g in grads if g is not None]
         with kl.backward_launches():
-            return transpose_rc(grad.contiguous())
+            moved = iter(transpose_many(live) if live else ())
+        return tuple(None if g is None else next(moved) for g in grads)
 
 
-def kv_line_to_port(kv: torch.Tensor) -> torch.Tensor:
+def kv_line_to_port(kv):
     """KV-cache layout engine: line-major ``[T, H, D]`` (one timestep = one
     wide line across heads) → port-major ``[H, T, D]`` (one stream per
-    head); ``[B, T, H, D]`` → ``[B, H, T, D]`` in one launch."""
-    return transpose_rc(kv)
+    head); ``[B, T, H, D]`` → ``[B, H, T, D]`` in one launch.  ``kv`` is a
+    leaf (→ its port-major leaf) or a sequence of leaves (→ the list of
+    them, one launch for all, :func:`transpose_many`)."""
+    if isinstance(kv, torch.Tensor):
+        return transpose_rc(kv)
+    return transpose_many(kv)
 
 
 def interconnect_read(lines: torch.Tensor, n_ports: int) -> torch.Tensor:

@@ -11,7 +11,7 @@ either mode.  Two modes, as the reference's:
 
 * one-shot (default): ``api.greedy_generate`` over the batch through the
   per-layer decode path, which reads every layer's K/V through the fabric's
-  layout engine (one transpose kernel launch per K/V leaf per layer);
+  layout engine (one transpose kernel launch per layer for its K and V);
 * ``--engine``: the continuous-batching
   :class:`repro_torch.serving.ServingEngine`, whose decode step is
   burst-scheduled — with the fused gather (default) each K/V pool leaf is

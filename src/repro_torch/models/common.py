@@ -247,25 +247,28 @@ def _model_fabric(cfg) -> Fabric:
     return Fabric.for_model(cfg)
 
 
-def _kv_port_major(c: torch.Tensor, cfg) -> torch.Tensor:
+def _kv_port_major(c, cfg):
     """``[B, T, Hkv, D]`` line-major → ``[B, Hkv, T, D]`` port-major through
-    the model's fabric (the layout-engine kernel on the medusa fabric)."""
+    the model's fabric (the layout-engine kernel on the medusa fabric):
+    one leaf, or a sequence of leaves in one launch (→ a list)."""
     return _model_fabric(cfg).kv_port_major(c)
 
 
 def cached_attention(q, ck, cv, pos, kv_pos, valid, window, cfg):
     """Decode attention over a line-major cache, by the model's fabric:
     ``medusa``/``crossbar``/``oracle`` re-bank K and V to port-major head
-    streams first (one layout-engine launch per leaf on the medusa
-    fabric); ``fused`` contracts the line-major cache directly
+    streams first (one layout-engine launch for the pair on the medusa
+    fabric, none for a one-head cache, whose port-major leaves are views
+    of ``ck``/``cv``: they are read here, before anything writes the cache
+    again); ``fused`` contracts the line-major cache directly
     (:func:`_decode_attention_linemajor`, no banked copy).  All fabrics are
     value-identical."""
-    if _model_fabric(cfg).impl == "fused":
+    fabric = _model_fabric(cfg)
+    if fabric.impl == "fused":
         return _decode_attention_linemajor(q, ck, cv, pos, kv_pos, valid,
                                            window)
-    return _decode_attention(q, _kv_port_major(ck, cfg),
-                             _kv_port_major(cv, cfg), pos, kv_pos, valid,
-                             window)
+    k_pm, v_pm = fabric.kv_port_major((ck, cv))
+    return _decode_attention(q, k_pm, v_pm, pos, kv_pos, valid, window)
 
 
 def _decode_attention_linemajor(q, k, v, pos, kv_pos, valid, window):

@@ -498,9 +498,9 @@ def decode_step(params: LM, token, caches, pos, cfg: ModelConfig, sched=None,
     Without ``sched`` this is the per-layer path: every layer writes the
     new token's K/V into its line-major (or ring) cache and reads the cache
     through the fabric's KV layout engine — on the medusa fabric one
-    layout-engine kernel launch per K/V leaf per layer (ring layers at
-    per-row positions, and every layer on the ``fused`` fabric, attend
-    line-major instead).
+    layout-engine kernel launch per layer for its K and V leaves, none for
+    a one-head cache (ring layers at per-row positions, and every layer on
+    the ``fused`` fabric, attend line-major instead).
 
     With a ``BurstScheduler`` every full-attention leaf's port-major
     conversion is one shared read burst at the top of the step; attention

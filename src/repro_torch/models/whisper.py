@@ -15,10 +15,10 @@ per-layer views once.
 
 The decoder's cross-attention K/V are computed once from the encoder
 output and made port-major through the model's fabric (``cm.
-_kv_port_major``: the layout-engine kernel on the medusa fabric, two
-launches per decoder layer); decode keeps line-major self-attention caches
-read through the same layout engine (two launches per layer per step) and
-the static port-major cross K/V.  The decode step writes the new token's
+_kv_port_major``: the layout-engine kernel on the medusa fabric, one
+launch for every decoder layer's K and V); decode keeps line-major
+self-attention caches read through the same layout engine (one launch per
+layer per step, for its K and V) and the static port-major cross K/V.  The decode step writes the new token's
 K/V into the caches in place, as :mod:`repro_torch.models.lm` does.
 """
 
@@ -176,26 +176,28 @@ def encode(params: Whisper, frames: torch.Tensor,
 def _enc_cross_kv(layers: List[dict], enc_out: torch.Tensor,
                   cfg: ModelConfig) -> list:
     """Each decoder layer's cross K/V ``(k_pm, v_pm)``, port-major ``[B,
-    Hkv, S_enc, D]`` through the model's fabric (the layout engine)."""
+    Hkv, S_enc, D]``: every layer's K and V computed first, then the list
+    of ``2 * n_layers`` leaves banked through the model's fabric in one
+    call (one layout-engine launch on the medusa fabric).  The leaves are
+    fresh products, so a one-head view aliases nothing else."""
     b, s_enc, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    out = []
+    leaves = []
     for bp in layers:
-        k = (enc_out @ bp["xattn"]["wk"]).reshape(b, s_enc, cfg.n_kv_heads,
-                                                  hd)
-        v = (enc_out @ bp["xattn"]["wv"]).reshape(b, s_enc, cfg.n_kv_heads,
-                                                  hd)
-        out.append((cm._kv_port_major(k, cfg), cm._kv_port_major(v, cfg)))
-    return out
+        for w in ("wk", "wv"):
+            leaves.append((enc_out @ bp["xattn"][w]).reshape(
+                b, s_enc, cfg.n_kv_heads, hd))
+    banked = cm._kv_port_major(leaves, cfg)
+    return list(zip(banked[0::2], banked[1::2]))
 
 
 def forward(params: Whisper, tokens: torch.Tensor, frames: torch.Tensor,
             cfg: ModelConfig, kv_chunk: int = 0) -> torch.Tensor:
     """The training forward: encode ``frames``, decode ``tokens [B, S]`` →
     logits ``[B, S, V]`` (float32, over the padded vocab).  The cross K/V
-    go through the layout engine once per decoder layer, outside the
-    rematerialised blocks, so a step launches it ``2 * n_layers`` times
-    forward and as many in the backward."""
+    of every decoder layer go through the layout engine together, outside
+    the rematerialised blocks, so a step launches it once forward and once
+    in the backward."""
     enc_out = encode(params, frames, cfg)
     layers = params.decoder.unbind()
     cross_kv = _enc_cross_kv(layers, enc_out, cfg)

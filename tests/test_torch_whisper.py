@@ -181,39 +181,41 @@ _greedy = jax.jit(japi.greedy_generate, static_argnums=(2, 3, 4))
 
 def test_greedy_tokens_equal_kernels_on_off_and_crossbar():
     """Greedy tokens equal the reference's with the port's kernels on, off
-    and on the crossbar fabric; kernel 4 runs at prefill (2 per decoder
-    layer, the cross K/V) and per step (2 per layer, the self cache) — no
-    launch on the CPU, where the plain versions run, so the counts are
-    held through the wrapper's calls."""
+    and on the crossbar fabric; kernel 4 runs once at prefill (every
+    decoder layer's cross K and V in one call) and once per layer per step
+    (the self cache's K and V) — no launch on the CPU, where the plain
+    versions run, so the counts are held through the multi-leaf wrapper's
+    calls."""
     jcfg, tcfg, jparams, tparams = pair()
     frames, tokens = _inputs(jcfg, b=2, s=5, seed=8)
     want = np.asarray(_greedy(jparams, jnp.asarray(tokens), jcfg, 6, 12,
                               {"frames": jnp.asarray(frames)}))
     calls = []
-    orig = mt.medusa_transpose_tiles
+    orig = mt.medusa_transpose_many
 
-    def counting(x):
-        calls.append(tuple(x.shape))
-        return orig(x)
+    def counting(xs):
+        calls.append([tuple(x.shape) for x in xs])
+        return orig(xs)
 
     for what in ("on", "off", "crossbar"):
         cfg = (dataclasses.replace(tcfg, kv_layout="crossbar")
                if what == "crossbar" else tcfg)
         tops.use_kernels(what != "off")
         calls.clear()
-        mt.medusa_transpose_tiles = counting
+        mt.medusa_transpose_many = counting
         try:
             with torch.no_grad():
                 got = api.greedy_generate(
                     tparams, torch.tensor(tokens), cfg, steps=6, t_max=12,
                     extra={"frames": frames})
         finally:
-            mt.medusa_transpose_tiles = orig
+            mt.medusa_transpose_many = orig
         np.testing.assert_array_equal(got.numpy(), want, err_msg=what)
         n = tcfg.n_layers
-        assert len(calls) == (2 * n * (1 + 6) if what == "on" else 0), what
+        assert len(calls) == (1 + n * 6 if what == "on" else 0), what
         if what == "on":
-            assert calls[:2 * n] == [(2, 8, 4, 12)] * (2 * n)
+            assert calls[0] == [(2, 8, 4, 12)] * (2 * n)
+            assert all(len(c) == 2 for c in calls[1:])
 
 
 def test_transpose_autograd_function_gradient_is_the_plain_swap():
