@@ -182,13 +182,33 @@ Phases (any fault exits non-zero):
    ``sharded: stablelm-1.6b S=2``); the serve CLI with ``--pool-shards``
    1, 2 and 4 (``--collective ring``): equal tokens, its report line,
    launches exact;
-17. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
+17. parallel — ROADMAP item 8b, every rank on the one card: (a) the ring
+   MoE (``moe_apply_shardmap``) on granite-moe-3b-a800m's MoE layer at
+   full width (random weights from seed 0) over 1, 2, 4 and 8 ranks on x
+   [8, 448, 1536]: the ``ring`` and ``xla`` exchanges bit-equal in bf16
+   and fp32; each rank count's layer time (host clock) and its exchanges'
+   device time beside ``moe_apply`` (kernels 1-2) on the same tokens; the
+   fp32 output and the four weight leaves' gradients at 8 ranks within
+   1e-4 of the same call on the CPU; at ample capacity (x [8, 1] and [8,
+   32] tokens, no slot dropped) within 2e-4 of ``moe_apply``; (b)
+   stablelm-1.6b's data-parallel training at full width, 8 x 64: the train
+   CLI with ``--multi-pod`` (2 rank blocks over pod), ``build_train_step``
+   over (data=2, model=1) bit-equal to one rank at 2 microbatches and,
+   against one rank at 1, the first step's loss, grad norm and gradient
+   within bounds that a faulty mean (a block dropped, the sum undivided)
+   exceeds, the steps' times; 16 rank blocks on the (16, 16) mesh at
+   batch 16 no higher in peak memory than (data=2); the
+   int8 ``dp_grad_mean`` of the two blocks' gradients within 5 % of the
+   exact mean and bit-equal to the CPU on three leaves; (c) the pipeline,
+   4 stages of ``tanh(x @ w)`` at d 2048, 8 microbatches of 128 rows,
+   forward and gradients within 1e-5 of the sequential stages, both timed;
+18. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
    float32 agree between the card and the CPU within 1e-4 (engine step;
    gemma3 one-shot), granite-moe's tokens and every ``SchedulerStats``
    field exactly; the stablelm smoke through the reference's churn trace
    (swap, recompute, swap with faults): tokens, ``SchedulerStats`` and the
    pool state equal, cache bytes within 1e-4;
-18. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+19. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
    bytes or by operations, at that path's shapes; a matmul's entry also
    names its route; the swap streams' entries are the paths ``swap:
@@ -354,6 +374,32 @@ SHARDED_ROWS = "S=2 all_to_all"
 SHARDED = f"sharded: {SHARDED_ARCH} S=2"
 SHARDED_CLI = ((1, "all_to_all"), (2, "all_to_all"), (4, "ring"))
 SHARDED_CLI_GEN = 16
+# the parallel phase: the ring MoE's rank counts, its tokens at the config's
+# capacity (rows, tokens a row; bf16 timed, fp32 held against the CPU at
+# PAR_CPU_RANKS ranks within PAR_TOL), its shapes at ample capacity (held
+# against moe_apply within PAR_AMPLE_TOL, tests/test_moe_shardmap.py's
+# bound); the data-parallel train steps and rate of stablelm-1.6b (batch
+# TRAIN_BATCH x TRAIN_SEQ); the bound of the int8 gradient mean
+# (tests/test_multidevice.py's); the pipeline's stages, microbatches and
+# rows (at stablelm-1.6b's d_model), held within PAR_PIPE_TOL
+PAR_RANKS = (1, 2, 4, 8)
+PAR_MOE_X = (8, 448)
+PAR_CPU_RANKS = 8
+PAR_TOL = 1e-4
+PAR_AMPLE_X = ((8, 1), (8, 32))
+PAR_AMPLE_TOL = 2e-4
+PAR_TRAIN_STEPS, PAR_LR, PAR_CLIP = 4, 3e-3, 1.0
+# the (data=2) step against one rank at 1 microbatch, first step: loss
+# (absolute), grad norm (relative) and gradient (the worst leaf's max |diff|
+# over its largest entry), each a few times the sound runs' largest reading
+# and below what a faulty mean reads (PERF.md §6, PR 29); the peak memory
+# at 16 rank blocks may pass the data=2 step's by PAR_PEAK_SLACK GiB
+PAR_DP_LOSS_TOL, PAR_DP_NORM_TOL, PAR_DP_GRAD_TOL = 4e-6, 4e-4, 5e-2
+PAR_PEAK_SLACK = 0.5
+PAR_INT8_TOL = 0.05
+PAR_PIPE = (4, 8, 128)
+PAR_PIPE_TOL = 1e-5
+PAR_LEAVES = ("router", "w_gate", "w_out", "w_up")
 
 
 def fail(msg: str) -> None:
@@ -4281,6 +4327,451 @@ def whisper_phase(torch, dev, rows, with_profile: bool = False) -> None:
           f"{card_line()}", flush=True)
 
 
+def ring_moe(p, x, n: int, collective: str, cfg):
+    """The ring MoE over ``n`` ranks: ``x``'s rows split into ``n`` rank
+    blocks, each rank's views of the experts; the outputs concatenated."""
+    import torch
+
+    from repro_torch.models.moe_shardmap import (moe_apply_shardmap,
+                                                 shard_expert_params)
+
+    return torch.cat(moe_apply_shardmap(
+        [shard_expert_params(p, r, n, cfg) for r in range(n)],
+        list(x.chunk(n)), cfg, collective))
+
+
+def ring_moe_grads(torch, p, x, cot, n: int, cfg):
+    """The ring MoE's output and the gradients of ``sum(out * cot)`` by
+    the four weight leaves (fresh leaves that require grad)."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p.items()}
+    out = ring_moe(leaves, x, n, "ring", cfg)
+    grads = torch.autograd.grad((out * cot).sum(),
+                                [leaves[k] for k in PAR_LEAVES])
+    return out.detach(), grads
+
+
+def par_ring_moe(torch, dev) -> None:
+    """(a) of :func:`parallel_phase`."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.parallel import collectives
+
+    cfg = get_config(MOE_ARCH)
+    m, d = cfg.moe, cfg.d_model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    p16 = moe.moe_params(cfg, torch.bfloat16, gen, dev)
+    p32 = {k: v.float() for k, v in p16.items()}
+    rows, toks = PAR_MOE_X
+    x32 = torch.randn(rows, toks, d, generator=gen, device=dev)
+    x16 = x32.to(torch.bfloat16)
+
+    # ring and xla exchange the same bits, at every rank count, both dtypes
+    for label, p, x in (("bf16", p16, x16), ("fp32", p32, x32)):
+        for n in PAR_RANKS:
+            ring = ring_moe(p, x, n, "ring", cfg)
+            xla = ring_moe(p, x, n, "xla", cfg)
+            check(torch.equal(ring, xla) and bool(torch.isfinite(ring).all()),
+                  f"ring MoE {label} n={n}: ring and xla differ "
+                  f"(max abs {float((ring.float() - xla.float()).abs().max())})")
+    print(f"parallel: ring MoE {MOE_ARCH} layer (d_model {d}, "
+          f"{m.n_experts} experts top-{m.top_k}, expert d_ff "
+          f"{m.expert_d_ff}, capacity factor {m.capacity_factor}) on x "
+          f"[{rows}, {toks}, {d}]: ring == xla bit for bit at n = "
+          f"{list(PAR_RANKS)}, bf16 and fp32", flush=True)
+
+    # the layer's time at each n and collective, the exchanges' device time
+    t = rows * toks
+    for n in PAR_RANKS:
+        cap = max(int(t // n * m.top_k * m.capacity_factor / m.n_experts), 1)
+        e_loc = m.n_experts_padded // n
+        sends = [torch.randn(n, e_loc * cap, d, generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(n)]
+        parts = []
+        for coll, fn in (("ring", collectives.ring_all_to_all),
+                         ("xla", collectives.xla_all_to_all)):
+            layer = statistics.median(
+                wall_ms(torch, lambda: ring_moe(p16, x16, n, coll, cfg))
+                for _ in range(5))
+            hop = time_ms(torch, lambda: fn(sends), reps=10,
+                          spin=4 * SPIN_CYCLES)
+            parts.append(f"{coll} {layer:.3f} ms (each of its two "
+                         f"exchanges {hop:.4f} ms on the device)")
+        print(f"parallel: ring MoE bf16 n={n} (cap {cap} a rank, send "
+              f"blocks [{n}, {e_loc * cap}, {d}] a rank): "
+              + "; ".join(parts), flush=True)
+        del sends
+    single = statistics.median(wall_ms(torch, lambda: moe.moe_apply(
+        p16, x16, cfg)) for _ in range(5))
+    print(f"parallel: moe_apply (kernels 1-2, one device) on the same "
+          f"tokens: {single:.3f} ms", flush=True)
+
+    # fp32 at the config's capacity: the card against the CPU
+    n = PAR_CPU_RANKS
+    cot = torch.randn(x32.shape, generator=gen, device=dev)
+    out, grads = ring_moe_grads(torch, p32, x32, cot, n, cfg)
+    t0 = time.perf_counter()
+    cpu = {k: v.cpu() for k, v in p32.items()}
+    out_h, grads_h = ring_moe_grads(torch, cpu, x32.cpu(), cot.cpu(), n, cfg)
+    cpu_s = time.perf_counter() - t0
+    diff = sum(int((moe._assign(cpu, xb.reshape(-1, d), cfg)[3]
+                    != moe._assign(p32, xb.reshape(-1, d).to(dev),
+                                   cfg)[3].cpu()).sum())
+               for xb in x32.cpu().chunk(n))
+    err = float((out.cpu() - out_h).abs().max())
+    rel = {k: float((g.cpu() - h).abs().max() / h.abs().max())
+           for k, g, h in zip(PAR_LEAVES, grads, grads_h)}
+    print(f"parallel: ring MoE fp32 n={n}, card vs CPU ({cpu_s:.1f} s on "
+          f"the CPU): {diff} slots routed apart, output max abs {err:.3g} "
+          f"(tolerance {PAR_TOL}), gradients max abs / largest entry "
+          f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} } (tolerance "
+          f"{PAR_TOL})", flush=True)
+    check(err <= PAR_TOL and all(v <= PAR_TOL for v in rel.values())
+          and all(float(h.abs().max()) > 0 for h in grads_h),
+          f"ring MoE card vs CPU: output {err}, gradients {rel}")
+    del grads, grads_h, out, out_h, cpu
+
+    # ample capacity: no slot drops, so the ring equals moe_apply
+    ample = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    worst = 0.0
+    for rows_a, toks_a in PAR_AMPLE_X:
+        x = torch.randn(rows_a, toks_a, d, generator=gen, device=dev)
+        want = moe.moe_apply(p32, x, ample)
+        for n in PAR_RANKS:
+            check(all(bool(moe._assign(p32, xb.reshape(-1, d), ample)[2]
+                           .all()) for xb in x.chunk(n)),
+                  f"ring MoE ample n={n}: a slot dropped")
+            for coll in ("ring", "xla"):
+                got = ring_moe(p32, x, n, coll, ample)
+                worst = max(worst, float((got - want).abs().max()))
+    print(f"parallel: ring MoE fp32 at ample capacity (factor "
+          f"{ample.moe.capacity_factor}) on x {list(PAR_AMPLE_X)} x "
+          f"[{d}], n = {list(PAR_RANKS)}, both exchanges, against "
+          f"moe_apply: max abs {worst:.3g} (tolerance {PAR_AMPLE_TOL})",
+          flush=True)
+    check(worst <= PAR_AMPLE_TOL, f"ring MoE ample vs moe_apply: {worst}")
+
+
+def dp_run(torch, dev, cfg, data, mesh, accum: int, keep_m: bool = False,
+           steps: int = PAR_TRAIN_STEPS):
+    """``steps`` steps of ``build_train_step`` over ``mesh`` at ``accum``
+    microbatches a rank block, from seed 0.  Returns the step (``built``),
+    the first step's loss and grad norm (``first``), its peak device
+    memory in GiB with the parameters and the optimizer state already
+    there (``peak``), the parameters after it (``after``, copies), with
+    ``keep_m`` the first moment after it (``m``, copies: Adam's first step
+    leaves ``(1 - beta1)`` times the clipped gradient there, else None),
+    and the host time of each step (``times``)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.convert import param_list
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import init_opt_state
+
+    tcfg = TrainConfig(lr=PAR_LR, warmup_steps=1,
+                       total_steps=PAR_TRAIN_STEPS, grad_accum=accum)
+    assert tcfg.grad_clip == PAR_CLIP
+    built = build_train_step(cfg, ShapeConfig("dp", data.seq, data.batch,
+                                              "train"), tcfg, mesh=mesh)
+    params = api.init_params(cfg, seed=0, device=dev)
+    state = {"params": params,
+             "opt": init_opt_state(params, tcfg, master=False)}
+    run = SimpleNamespace(built=built, times=[], m=None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = built.fn(state, data.batch_at(i))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        run.times.append(time.perf_counter() - t0)
+        check(math.isfinite(loss), f"dp step: loss {loss}")
+        if i == 0:
+            run.peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            run.first = (loss, gnorm)
+            run.after = [p.detach().clone() for p in param_list(params)]
+            if keep_m:
+                run.m = [m.clone() for m in state["opt"].m]
+    del state, params
+    return run
+
+
+def leaf_gap(xs, ys, sx: float = 1.0, sy: float = 1.0) -> float:
+    """The worst leaf's ``max |sx x - sy y| / max |sy y|``."""
+    return max(float((x * sx - y * sy).abs().max() / (y * sy).abs().max())
+               for x, y in zip(xs, ys))
+
+
+def par_dp_train(torch, dev) -> None:
+    """(b) of :func:`parallel_phase`."""
+    import shutil
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.convert import reference_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim.optimizer import global_norm
+    from repro_torch.parallel import dp_grad_mean
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    built = build_train_step(
+        cfg, shape, TrainConfig(grad_accum=1),
+        mesh=make_production_mesh(multi_pod=True, device=dev))
+    check(built.batch_blocks == 2 and built.batch_specs["tokens"] == ("pod",),
+          f"--multi-pod: {built.batch_blocks} blocks, {built.batch_specs}")
+
+    # the train CLI on the (2, 16, 16) mesh: 2 rank blocks over pod
+    ckpt_dir = ROOT / "build" / "par_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    state, _, history, out = run_train_cli(
+        torch, ["--arch", TRAIN_ARCH, "--device", "cuda", "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir",
+                str(ckpt_dir), "--log-every", "1", "--steps",
+                str(PAR_TRAIN_STEPS), "--ckpt-every", str(10 ** 6),
+                "--multi-pod"])
+    losses = [float(loss) for _, _, loss in history]
+    check(f"done at step {PAR_TRAIN_STEPS}; restarts=0" in out
+          and all(math.isfinite(x) for x in losses)
+          and len(losses) == PAR_TRAIN_STEPS and not ckpt_dir.exists(),
+          f"train --multi-pod: {out[-300:]}")
+    times = [b[1] - a[1] for a, b in zip(history, history[1:])]
+    print(f"parallel: train CLI --multi-pod {TRAIN_ARCH} full width, mesh "
+          f"(pod=2, data=16, model=16) over the card, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in 2 rank blocks over pod: losses "
+          f"{[round(x, 4) for x in losses]}, median step (steps "
+          f"2-{PAR_TRAIN_STEPS}) {statistics.median(times) * 1e3:.1f} ms",
+          flush=True)
+    del state
+    free_model(torch, "parallel: train CLI")
+
+    # build_train_step over (data=2, model=1) against one rank: the same
+    # microbatches (one rank at 2) bit for bit; the whole batch (one rank at
+    # 1) by the first step's loss, grad norm and gradient (the first moment),
+    # each within a bound set from readings and below what a faulty mean
+    # reads (checked once the blocks' gradients are at hand, below)
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    dp = dp_run(torch, dev, cfg, data,
+                make_mesh((2, 1), ("data", "model"), dev), 1, keep_m=True)
+    check(dp.built.batch_blocks == 2,
+          f"data=2: {dp.built.batch_blocks} blocks")
+    dp_first, dp_after, dp_times, dp_peak = (dp.first, dp.after, dp.times,
+                                             dp.peak)
+    free_model(torch, "parallel: data-parallel step")
+    one = make_mesh((1, 1), ("data", "model"), dev)
+    two = dp_run(torch, dev, cfg, data, one, 2)
+    first2 = two.first
+    same = first2 == dp_first and all(torch.equal(a, b)
+                                      for a, b in zip(two.after, dp_after))
+    del two
+    free_model(torch, "parallel: one rank at 2 microbatches")
+    whole = dp_run(torch, dev, cfg, data, one, 1, keep_m=True)
+    first1, after1, one_times = whole.first, whole.after, whole.times
+    dgrad = leaf_gap(dp.m, whole.m)
+    del dp, whole
+    # Adam's first step moves an element by lr g / (|g| + eps) + lr wd p
+    # (the same p in both runs), about lr whatever g is: two gradients move
+    # it apart by at most 2 lr, and the two bf16 stores by half an ulp each
+    # (an ulp <= |p| / 2**7) more.  So this bound holds for any update,
+    # a wrong one too: it does not separate a correct mean from a faulty one
+    pdiff, outside, moved, total = 0.0, 0, 0, 0
+    for a, b in zip(after1, dp_after):
+        gap = (a.float() - b.float()).abs()
+        mag = torch.maximum(a.float().abs(), b.float().abs())
+        pdiff = max(pdiff, float(gap.max()))
+        outside += int((gap > 2 * PAR_LR * (1 + 1e-6) + mag / 2 ** 7).sum())
+        moved += int((a != b).sum())
+        total += a.numel()
+        del gap, mag
+    dloss = abs(first1[0] - dp_first[0])
+    dnorm = abs(first1[1] - dp_first[1]) / first1[1]
+    print(f"parallel: build_train_step {TRAIN_ARCH} full width over (data=2, "
+          f"model=1), 2 rank blocks of {TRAIN_BATCH // 2}: first step loss "
+          f"{dp_first[0]:.6f}, grad_norm {dp_first[1]:.6f}; one rank at 2 "
+          f"microbatches {first2[0]:.6f}, {first2[1]:.6f} (parameters after "
+          f"the step {'bit-equal' if same else 'DIFFERENT'}); one rank at 1 "
+          f"{first1[0]:.6f}, {first1[1]:.6f}: loss |diff| {dloss:.3g} "
+          f"(tolerance {PAR_DP_LOSS_TOL}), grad_norm relative {dnorm:.3g} "
+          f"(tolerance {PAR_DP_NORM_TOL}), first-step gradient (first "
+          f"moment) worst leaf max |diff| / largest entry {dgrad:.3g} "
+          f"(tolerance {PAR_DP_GRAD_TOL}); parameters max |diff| "
+          f"{pdiff:.3g}, {moved} of {total} elements apart, {outside} of "
+          f"them by more than 2 lr + one bf16 ulp (Adam's first-step bound, "
+          f"met by any update, not a check of the mean); median step (steps "
+          f"2-{PAR_TRAIN_STEPS}) data=2 "
+          f"{statistics.median(dp_times[1:]) * 1e3:.1f} ms, one rank "
+          f"{statistics.median(one_times[1:]) * 1e3:.1f} ms; data=2 peak "
+          f"memory (first step) {dp_peak:.2f} GiB", flush=True)
+    check(same, "data-parallel step differs from one rank at 2 microbatches")
+    check(dloss <= PAR_DP_LOSS_TOL and dnorm <= PAR_DP_NORM_TOL
+          and dgrad <= PAR_DP_GRAD_TOL and outside == 0,
+          f"data-parallel step vs one rank: loss {dloss}, norm {dnorm}, "
+          f"gradient {dgrad}, parameters {pdiff}")
+    del after1, dp_after
+    free_model(torch, "parallel: one rank")
+
+    # 16 rank blocks of one row on the (16, 16) mesh: the step holds one
+    # block's gradient beside the running sum, so its peak does not grow
+    # with the block count (16 float32 gradient sets would not fit)
+    wide = dp_run(torch, dev, cfg, SyntheticLM(cfg, batch=16, seq=TRAIN_SEQ,
+                                               seed=0),
+                  make_production_mesh(device=dev), 1, steps=1)
+    blocks16 = wide.built.batch_blocks
+    print(f"parallel: build_train_step {TRAIN_ARCH} full width over (data=16, "
+          f"model=16), batch 16 x {TRAIN_SEQ} in {blocks16} rank blocks of "
+          f"1: loss {wide.first[0]:.6f}, grad_norm {wide.first[1]:.6f}, step "
+          f"{wide.times[0] * 1e3:.1f} ms, peak memory {wide.peak:.2f} GiB "
+          f"(data=2 at batch {TRAIN_BATCH}: {dp_peak:.2f} GiB, allowance "
+          f"{PAR_PEAK_SLACK} GiB)", flush=True)
+    check(blocks16 == 16 and wide.peak <= dp_peak + PAR_PEAK_SLACK,
+          f"16 blocks: {blocks16}, peak {wide.peak} GiB")
+    del wide
+    free_model(torch, "parallel: 16 rank blocks")
+
+    # the two blocks' gradients: what a faulty mean reads against the
+    # exact one (the loss mean with block 1 dropped; the gradient mean with
+    # block 1 dropped, clipped as the first moment is, or left undivided,
+    # whose grad norm reads 1 apart), and the int8 mean against the exact
+    params = api.init_params(cfg, seed=0, device=dev)
+    batch = on_card(torch, data.batch_at(0), dev)
+    half = TRAIN_BATCH // 2
+    blocks, block_losses = [], []
+    for r in range(2):
+        loss, g = loss_and_grads(torch, params, {
+            k: v[r * half:(r + 1) * half] for k, v in batch.items()}, cfg)
+        block_losses.append(float(loss))
+        blocks.append([x.float() for x in g])
+        del g
+    exact = dp_grad_mean(blocks)
+    n0, nm = float(global_norm(blocks[0])), float(global_norm(exact))
+    bad_loss = abs(block_losses[0] - block_losses[1]) / 2
+    bad_norm = min(abs(n0 - nm) / nm, 1.0)
+    bad_grad = leaf_gap(blocks[0], exact, min(1.0, PAR_CLIP / n0),
+                        min(1.0, PAR_CLIP / nm))
+    print(f"parallel: the (data=2) step's bounds against a faulty mean: "
+          f"loss {dloss:.3g} <= {PAR_DP_LOSS_TOL} < {bad_loss:.3g} (block "
+          f"losses {block_losses[0]:.6f}, {block_losses[1]:.6f}); grad_norm "
+          f"{dnorm:.3g} <= {PAR_DP_NORM_TOL} < {bad_norm:.3g} (block 0 "
+          f"{n0:.6f}, mean {nm:.6f}; undivided 1); gradient {dgrad:.3g} <= "
+          f"{PAR_DP_GRAD_TOL} < {bad_grad:.3g}", flush=True)
+    check(PAR_DP_LOSS_TOL < bad_loss and PAR_DP_NORM_TOL < bad_norm
+          and PAR_DP_GRAD_TOL < bad_grad,
+          f"a bound does not separate a faulty mean: loss {bad_loss}, norm "
+          f"{bad_norm}, gradient {bad_grad}")
+    int8 = dp_grad_mean(blocks, "int8")
+    none_ms = statistics.median(wall_ms(torch, lambda: dp_grad_mean(blocks))
+                                for _ in range(3))
+    int8_ms = statistics.median(wall_ms(torch, lambda: dp_grad_mean(
+        blocks, "int8")) for _ in range(3))
+    rel = [float((a - b).abs().max() / b.abs().max())
+           for a, b in zip(int8, exact)]
+    paths = [path for path, ts, _ in reference_leaves(params) for _ in ts]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    picks = (0, len(rel) // 2, len(rel) - 1)
+    cpu_same = all(torch.equal(
+        dp_grad_mean([[blocks[0][i].cpu()], [blocks[1][i].cpu()]],
+                     "int8")[0].view(torch.int32),
+        int8[i].cpu().view(torch.int32)) for i in picks)
+    print(f"parallel: dp_grad_mean over the 2 blocks' gradients "
+          f"({len(rel)} leaves, {sum(g.numel() for g in exact)} float32): "
+          f"int8 against none, max abs / largest entry over leaves "
+          f"{max(rel):.4g} at {paths[worst]} (tolerance {PAR_INT8_TOL}); "
+          f"int8 on the CPU bit-equal at {[paths[i] for i in picks]}: "
+          f"{cpu_same}; none {none_ms:.2f} ms, int8 {int8_ms:.2f} ms",
+          flush=True)
+    check(max(rel) < PAR_INT8_TOL and cpu_same,
+          f"dp_grad_mean int8: relative {max(rel)}, CPU equal {cpu_same}")
+    del params, blocks, exact, int8, batch
+    free_model(torch, "parallel: gradient means")
+
+
+def par_pipeline(torch, dev) -> None:
+    """(c) of :func:`parallel_phase`."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import (bubble_fraction, pipeline_forward,
+                                      pipeline_loss)
+
+    d = get_config(TRAIN_ARCH).d_model
+    stages, micro, rows = PAR_PIPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ws = [(torch.randn(d, d, generator=gen, device=dev) * d ** -0.5)
+          .requires_grad_(True) for _ in range(stages)]
+    xs = torch.randn(micro, rows, d, generator=gen, device=dev)
+    tg = torch.randn(micro, rows, d, generator=gen, device=dev)
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+
+    def mse(o, t):
+        return torch.mean((o - t) ** 2)
+
+    def sequential(weights):
+        h = xs
+        for w in weights:
+            h = stage(w, h)
+        return h
+
+    seq = sequential(ws)
+    fwd = float((pipeline_forward(stage, ws, xs) - seq).abs().max().detach())
+    g_pipe = torch.autograd.grad(pipeline_loss(stage, mse, ws, xs, tg), ws)
+    g_seq = torch.autograd.grad(
+        torch.stack([mse(o, t) for o, t in zip(seq, tg)]).mean(), ws)
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(g_pipe, g_seq))
+    absd = max(float((a - b).abs().max()) for a, b in zip(g_pipe, g_seq))
+    frozen = [w.detach() for w in ws]
+    with torch.no_grad():
+        piped_ms = time_ms(torch, lambda: pipeline_forward(stage, frozen, xs),
+                           reps=10, spin=4 * SPIN_CYCLES)
+        seq_ms = time_ms(torch, lambda: sequential(frozen), reps=10,
+                         spin=4 * SPIN_CYCLES)
+    print(f"parallel: pipeline {stages} stages of tanh(x @ w) at d {d}, "
+          f"{micro} microbatches of {rows} rows, fp32 (bubble fraction "
+          f"{bubble_fraction(micro, stages):.4f}): forward max abs {fwd:.3g}, "
+          f"gradients max abs {absd:.3g}, max abs / largest entry {rel:.3g} "
+          f"against the sequential stages (tolerance {PAR_PIPE_TOL}); "
+          f"forward pipelined {piped_ms:.4f} ms, sequential {seq_ms:.4f} ms "
+          f"on the device", flush=True)
+    check(fwd <= PAR_PIPE_TOL and rel <= PAR_PIPE_TOL,
+          f"pipeline: forward {fwd}, gradients {rel}")
+
+
+def parallel_phase(torch, dev) -> None:
+    """ROADMAP item 8b on the card, every rank on the one card.  (a) The
+    ring MoE on granite-moe-3b-a800m's MoE layer at full width (random
+    weights from seed 0) over 1, 2, 4 and 8 ranks: ``ring`` and ``xla``
+    bit-equal in bf16 and fp32 on x [8, 448, 1536]; each rank count's
+    layer time (host clock) and its exchanges' device time beside
+    ``moe_apply``; fp32 output and the four weight leaves' gradients at 8
+    ranks against the same call on the CPU; at ample capacity (no slot
+    drops; x [8, 1] and [8, 32] tokens) against ``moe_apply``.  (b)
+    stablelm-1.6b's data-parallel training at full width, 8 x 64: the
+    train CLI with ``--multi-pod`` (2 rank blocks over pod);
+    ``build_train_step`` over (data=2, model=1) against one rank at 2
+    microbatches (bit for bit) and at 1 (loss, grad norm and first-step
+    gradient within bounds below what a faulty mean reads), the steps'
+    times; 16 rank blocks on (16, 16) at batch 16, their peak memory; ``dp_grad_mean`` int8 against none over the two
+    blocks' gradients, and bit-equal to the CPU on three leaves.  (c) The
+    pipeline: 4 stages of ``tanh(x @ w)`` at d 2048, 8 microbatches of 128
+    rows, forward and gradients against the sequential stages, timed."""
+    t_phase = time.perf_counter()
+    par_ring_moe(torch, dev)
+    free_model(torch, "parallel: ring MoE")
+    par_dp_train(torch, dev)
+    par_pipeline(torch, dev)
+    free_model(torch, "parallel: pipeline")
+    print(f"parallel: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def card_vs_cpu(torch, dev):
     """The smoke configs in float32, the same parameters on both devices:
     first-step logits within 1e-4 (engine step; gemma3 also one-shot);
@@ -4415,6 +4906,7 @@ def main() -> None:
     loadgen_phase(torch, dev, rows)
     read_sim_phase(torch, dev)
     sharded_phase(torch, dev, rows)
+    parallel_phase(torch, dev)
     card_vs_cpu(torch, dev)
 
     # one entry per kernel and path: its launches on that path's runs, its

@@ -16,13 +16,15 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
-    otherwise.  Raises when a CUDA device is asked for and none is present
-    — the port never falls back to the CPU on its own."""
+    otherwise (``meta`` builds shapes alone, nothing allocated, as the
+    step builders' specs need).  Raises when a CUDA device is asked for
+    and none is present — the port never falls back to the CPU on its
+    own."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is present; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -294,9 +294,12 @@ SHAPES = {
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer / run-level configuration (the reference's fields and
-    defaults).  ``zero1`` shards the optimizer state over the data axis,
-    which is of size 1 on one card; ``grad_compression`` belongs to the
-    multi-device data-parallel path (ROADMAP §1 item 8b)."""
+    defaults).  ``zero1`` gives the optimizer state ZeRO-1 specs over the
+    data axes (:func:`repro_torch.launch.steps.zero1_specs`); every rank
+    shares one device, so the state stays whole.  ``grad_compression`` is
+    read by neither package's train step, which averages the rank blocks
+    exactly; ``repro_torch.parallel.dp_grad_mean(..., "int8")`` is the
+    compressed mean."""
     lr: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 1000

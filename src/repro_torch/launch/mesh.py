@@ -1,17 +1,18 @@
-"""The device mesh of the sharded page pool (port of the pool's part of
-``repro.launch.mesh``).
+"""Device meshes (port of ``repro.launch.mesh``): the sharded page
+pool's 1-D mesh and the training meshes.
 
-The reference builds a ``jax.sharding.Mesh`` and runs the pool's bursts
-inside ``shard_map`` over it.  Here a mesh is an explicit list of
-``torch.device``s along one named axis (:data:`POOL_AXIS`), and
-:mod:`repro_torch.fabric.sharded` runs each shard's part of a burst in
-turn, in one process, on lists of per-shard blocks.
+The reference builds a ``jax.sharding.Mesh`` over that many devices and
+runs its bodies inside ``shard_map``.  Here a mesh is a grid of
+``torch.device``s with named axes, and the callers run each rank's part
+in turn, in one process, on lists of per-rank blocks
+(:mod:`repro_torch.fabric.sharded`, :mod:`repro_torch.launch.steps`).
 
-In this slice every shard lives on one device: the engine's, or the CPU
-in the tests.  The exchange between shards is then a copy on that device.
+Every position of a mesh is the run's one device: the card, or the CPU
+in the tests.  The exchange between ranks is then a copy on that device.
 A mesh over several distinct devices waits for a machine that has them
-(ROADMAP §1 item 8c) and raises.  ``make_production_mesh`` and
-``make_mesh``, the training meshes, wait for item 8b.
+(ROADMAP §1 item 8c) and raises.  :func:`make_production_mesh` lays the
+reference's (16, 16) and (2, 16, 16) meshes over one device, where the
+reference needs 256 or 512 devices and raises with fewer.
 
 The reference's ``compat_shard_map`` hands each shard its block of every
 operand, as the operand's ``PartitionSpec`` splits it, and runs the body
@@ -23,43 +24,80 @@ each shard's part of a hop in turn.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch import resolve_device
+
 POOL_AXIS = "pool"
+
+
+class DeviceGrid(tuple):
+    """A mesh's devices, flat in row-major order, with the mesh's
+    ``shape`` (as the reference's ``mesh.devices`` grid has)."""
+
+    def __new__(cls, devices, shape: Tuple[int, ...]):
+        grid = super().__new__(cls, devices)
+        grid.shape = tuple(shape)
+        return grid
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: ``devices[s]`` holds shard ``s`` of the axis ``axis``."""
+    """A mesh of named axes: ``devices`` is the grid of its positions (one
+    device at each), ``axis_names`` names its axes in order."""
 
-    devices: Tuple[torch.device, ...]
-    axis: str = POOL_AXIS
+    devices: DeviceGrid
+    axis_names: Tuple[str, ...] = (POOL_AXIS,)
+
+    @property
+    def axis(self) -> str:
+        """The one axis of a 1-D mesh."""
+        if len(self.axis_names) != 1:
+            raise ValueError(f"mesh over axes {self.axis_names} is not 1-D")
+        return self.axis_names[0]
 
     @property
     def size(self) -> int:
-        """The number of shards along the axis."""
+        """The number of positions (shards, ranks) of the mesh."""
         return len(self.devices)
 
 
 def compat_mesh(devices: Sequence, shape: tuple, axes: tuple) -> Mesh:
     """A :class:`Mesh` of ``devices`` laid out as ``shape`` with axis names
-    ``axes`` (the reference's signature).  Only a 1-D mesh whose devices
-    are all one device is built here."""
+    ``axes`` (the reference's signature).  Only a mesh whose devices are
+    all one device is built here."""
     devs = tuple(_indexed(torch.device(d)) for d in devices)
-    if len(shape) != 1 or len(axes) != 1:
-        raise ValueError(f"the pool mesh is 1-D, got shape {tuple(shape)} "
-                         f"over axes {tuple(axes)}")
-    if shape[0] != len(devs) or not devs:
-        raise ValueError(f"mesh shape {tuple(shape)} does not hold "
+    shape, axes = tuple(shape), tuple(axes)
+    if len(shape) != len(axes) or not shape:
+        raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+    if math.prod(shape) != len(devs) or not devs:
+        raise ValueError(f"mesh shape {shape} does not hold "
                          f"{len(devs)} devices")
     if len(set(devs)) > 1:
         raise NotImplementedError(
             f"a mesh over several devices {sorted(map(str, set(devs)))} is "
             f"ported in a later slice (ROADMAP §1 item 8c): every shard "
             f"shares one device here")
-    return Mesh(devs, axes[0])
+    return Mesh(DeviceGrid(devs, shape), axes)
+
+
+def make_mesh(shape: tuple, axes: tuple, device=None) -> Mesh:
+    """A mesh of ``shape`` over ``axes`` whose every position is ``device``
+    (``cuda`` unless the caller asks for the CPU; ``meta`` gives the axis
+    sizes alone): the reference's parametric mesh, laid over one device."""
+    dev = resolve_device(device)
+    return compat_mesh([dev] * math.prod(shape), shape, axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The reference's production mesh over one device: (data=16,
+    model=16), or with ``multi_pod`` (pod=2, data=16, model=16)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -2,12 +2,16 @@
 
 The reference's flags, plus ``--device`` (``cuda`` by default; ``cpu``
 runs the kernels' plain versions on the CPU) and ``--layers`` (the depth
-cut to that many layers, the widths kept).  Builds the one-device train
-step, wraps the fault-tolerant runner (checkpoint/restart and straggler
-detection) around it, and streams the deterministic synthetic pipeline;
-``--smoke`` takes the reduced config.  ``--fail-at`` injects node failures
-at those steps: the runner restores the latest checkpoint and goes on.
-``--multi-pod`` (a mesh across pods) is the multi-device path and raises.
+cut to that many layers, the widths kept).  Builds the train step over
+the mesh, wraps the fault-tolerant runner (checkpoint/restart and
+straggler detection) around it, and streams the deterministic synthetic
+pipeline.  ``--smoke`` takes the reduced config on a 1x1 mesh (and ignores
+``--multi-pod``); otherwise the mesh is the reference's production mesh,
+(data=16, model=16) or with ``--multi-pod`` (pod=2, data=16, model=16),
+laid over the one device: the batch splits into the rank blocks its
+spec gives (batch 8 over ``pod``: 2 blocks of 4), each block's gradient
+taken in turn and averaged.  ``--fail-at`` injects node failures at those
+steps: the runner restores the latest checkpoint and goes on.
 Prints ``step N loss ...`` every ``--log-every`` steps and ``done at step
 N; restarts=R, stragglers flagged=F`` at the end.  ``main`` returns the
 final state, the runner and ``(step, host clock, loss)`` after each step
@@ -32,11 +36,18 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step,
 from repro_torch.configs import TrainConfig, get_config, get_smoke
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import SyntheticLM
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import api
 from repro_torch.optim import init_opt_state
 from repro_torch.runtime import (FaultInjector, StragglerDetector,
                                  TrainingRunner)
+
+
+def make_mesh_for(args, device):
+    if args.smoke:
+        return make_mesh((1, 1), ("data", "model"), device)
+    return make_production_mesh(multi_pod=args.multi_pod, device=device)
 
 
 def main(argv=None):
@@ -62,10 +73,6 @@ def main(argv=None):
                     help="inject node failures at these steps (FT demo)")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod trains over a mesh of devices, the multi-device "
-            "path (ROADMAP §1 item 8b); this port trains on one card")
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -74,6 +81,7 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    mesh = make_mesh_for(args, device)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -81,7 +89,7 @@ def main(argv=None):
                        total_steps=args.steps, grad_accum=args.grad_accum,
                        zero1=not args.smoke, checkpoint_dir=args.ckpt_dir,
                        checkpoint_every=args.ckpt_every)
-    built = build_train_step(cfg, shape, tcfg)
+    built = build_train_step(cfg, shape, tcfg, mesh=mesh)
 
     params = api.init_params(cfg, seed=tcfg.seed, device=device)
     state = {"params": params,

@@ -164,9 +164,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     identity; the draft heads (``cfg.spec_heads``) like a projection; the
     RG-LRU and Mamba-2 parts as :func:`repro_torch.models.rglru.
     rglru_init_` and :func:`repro_torch.models.mamba2.mamba_init_` fill
-    them.  The numbers are not the reference's ``jax.random`` draws."""
+    them.  The numbers are not the reference's ``jax.random`` draws.  On
+    the ``meta`` device the parameters have their shapes and no values."""
     dev = resolve_device(device)
     params = LM(cfg, dev)
+    if dev.type == "meta":           # shapes alone
+        return params
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for block in params.modules():

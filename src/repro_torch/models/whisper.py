@@ -101,9 +101,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Whisper:
     scaled as :func:`repro_torch.models.lm.init_params` scales them
     (truncated normals over ``1/sqrt(d_in)``, the table over
     ``1/sqrt(d_model)``, norms at their identity).  The numbers are not
-    the reference's ``jax.random`` draws."""
+    the reference's ``jax.random`` draws.  On the ``meta`` device the
+    parameters have their shapes and no values."""
     dev = resolve_device(device)
     params = Whisper(cfg, dev)
+    if dev.type == "meta":           # shapes alone
+        return params
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for name, p in params.named_parameters():

@@ -14,8 +14,11 @@ every rank at once, and each rank keeps its own block.  ``xla_all_to_all``
 keeps the reference's name for the monolithic exchange ("xla": XLA's one
 ``all_to_all`` op there): every rank gathers its blocks from every other
 in one transpose.  Both move the same blocks, bit for bit.
-``compressed_psum`` and ``dp_grad_mean`` belong to training across
-devices (ROADMAP §1 item 8b).
+
+``compressed_psum`` (the int8 all-reduce) and ``dp_grad_mean`` (the
+data-parallel gradient mean) reduce over the ranks: they return the one
+tensor (or list) that every rank holds afterwards, in the reference's
+arithmetic, bit for bit.
 """
 
 from __future__ import annotations
@@ -70,3 +73,43 @@ def ring_all_gather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     # held[r][s] is the tensor of rank (r - s) % S; restore rank order
     return [torch.cat([held[r][(r - j) % n] for j in range(n)])
             for r in range(n)]
+
+
+def _psum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum over ranks, accumulated from zero in rank order, as XLA
+    reduces the rank axis (one rank's tensor is its own sum, its -0.0
+    kept)."""
+    if len(xs) == 1:
+        return xs[0]
+    total = torch.zeros_like(xs[0])
+    for x in xs:
+        total = total + x
+    return total
+
+
+def compressed_psum(gs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """int8-compressed gradient all-reduce of every rank's ``gs[r]``: each
+    rank quantises with the shared scale (the largest over ranks of
+    ``max(max|g|, 1e-12) / 127``; round half to even, clipped to ±127),
+    the int8 values sum as int32, and the sum comes back times the scale
+    (float32)."""
+    scale = torch.stack([torch.clamp(torch.max(torch.abs(g)), min=1e-12)
+                         / 127.0 for g in gs]).amax()
+    qs = [torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+          for g in gs]
+    total = _psum([q.to(torch.int32) for q in qs])
+    return total.to(torch.float32) * scale
+
+
+def dp_grad_mean(grads_per_rank: Sequence[Sequence[torch.Tensor]],
+                 compression: str = "none") -> List[torch.Tensor]:
+    """Data-parallel gradient mean: ``grads_per_rank[r]`` is rank ``r``'s
+    list of gradient leaves (aligned across ranks); returns the leaves'
+    mean over the ranks.  ``"none"`` is the exact mean (the sum over ranks
+    over their count), ``"int8"`` :func:`compressed_psum` over the
+    count."""
+    if compression not in ("none", "int8"):
+        raise ValueError(f"unknown compression {compression!r}")
+    n = len(grads_per_rank)
+    reduce = compressed_psum if compression == "int8" else _psum
+    return [reduce(leaf) / n for leaf in zip(*grads_per_rank)]

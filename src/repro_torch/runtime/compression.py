@@ -4,9 +4,9 @@
 Each tensor quantises to int8 with one float32 scale (``max|g| / 127``);
 the quantisation residual is carried in an error-feedback buffer and added
 to the next step's gradient, so the error does not accumulate.  Pure
-functions over lists of tensors.  Their caller, the collective
-data-parallel gradient mean, belongs to the multi-device path (ROADMAP §1
-item 8b).
+functions over lists of tensors.  The data-parallel gradient mean
+(``repro_torch.parallel.collectives.compressed_psum``) quantises with a
+scale shared across ranks instead, as the reference's does.
 """
 
 from __future__ import annotations

@@ -588,8 +588,15 @@ def test_train_cli_restarts_once_and_refuses_no_device(tmp_path, capsys):
     assert "step     4 loss" in out and runner.restarts == 1
     assert [h[0] for h in history] == list(range(1, 7)) + list(range(5, 13))
     assert latest_step(str(tmp_path / "ck")) == 12
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_cli.main(args + ["--device", "cpu", "--multi-pod"])
+    # --smoke trains on the 1x1 mesh whatever --multi-pod says: the same
+    # losses as without it
+    _, runner_mp, history_mp = train_cli.main(
+        args + ["--device", "cpu", "--multi-pod",
+                "--ckpt-dir", str(tmp_path / "ck_mp")])
+    out_mp = capsys.readouterr().out
+    assert "done at step 12" in out_mp and runner_mp.restarts == 1
+    assert [(s, float(loss)) for s, _, loss in history_mp] == \
+        [(s, float(loss)) for s, _, loss in history]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main(args)
