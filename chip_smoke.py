@@ -202,21 +202,37 @@ Phases (any fault exits non-zero):
    exact mean and bit-equal to the CPU on three leaves; (c) the pipeline,
    4 stages of ``tanh(x @ w)`` at d 2048, 8 microbatches of 128 rows,
    forward and gradients within 1e-5 of the sequential stages, both timed;
-18. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
+18. tooling — ROADMAP item 10b: (a) the dry run
+   (``repro_torch.launch.dryrun.run_cell``) of stablelm-1.6b's
+   ``prefill_32k`` and ``decode_32k`` over the (16, 16) mesh on meta, a
+   line each (the roofline terms, the model's and the census's FLOPs,
+   the stand-ins, the run's time); (b) the cost census
+   (``launch.hlo_analysis.analyze_step``) of the train phase's
+   stablelm-1.6b step (8 x 64) on the card: its FLOPs against the
+   model's, the step's MFU, and with the kernels off the census equal to
+   the same step's on meta (FLOPs exactly; bytes, or each op line apart
+   named); (c) the census of one fused decode step of the stablelm-1.6b
+   engine: kernels 1-2 as ops, as many as their launches, each launch's
+   bytes the kernels line's row; (d) ``launch.profile.breakdown``'s top
+   10 op lines of (b); (e) the profile CLI on the card at a cut
+   ``decode_32k``;
+19. card vs CPU — the stablelm, gemma3 and granite-moe smoke configs in
    float32 agree between the card and the CPU within 1e-4 (engine step;
    gemma3 one-shot), granite-moe's tokens and every ``SchedulerStats``
    field exactly; the stablelm smoke through the reference's churn trace
    (swap, recompute, swap with faults): tokens, ``SchedulerStats`` and the
    pool state equal, cache bytes within 1e-4;
-19. report — one ``{"kernels": [...]}`` line with an entry per kernel and
+20. report — one ``{"kernels": [...]}`` line with an entry per kernel and
    path (its launches in that path's runs, its times and its bound, by
-   bytes or by operations, at that path's shapes; a matmul's entry also
+   bytes or by operations from ``kernels.launch.kernel_cost``, at that
+   path's shapes; a matmul's entry also
    names its route; the swap streams' entries are the paths ``swap:
    <arch>``, the traffic harness's ``loadgen: stablelm-1.6b``, the
    sharded pool's ``sharded: stablelm-1.6b S=2``), the card
    line again, and the ``{"ok": true, ...}`` line last.
 
-``--profile`` adds ``torch.profiler`` censuses (after the launch counts
+``--profile`` adds ``torch.profiler`` censuses
+(``repro_torch.launch.profile.device_census``, after the launch counts
 are read) of the stablelm engine's fused decode steps, of gemma3-4b's
 one-shot decode steps with the layout-engine kernel on and off in turns,
 and of stablelm-1.6b's and whisper-medium's train steps:
@@ -239,9 +255,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_FLOP_PER_S = 989.4e12         # dense, tensor cores
-FP32_FLOP_PER_S = 66.9e12          # without the tensor cores
 REPS = 30
 SPIN_CYCLES = 1_000_000            # ~0.5 ms at the H100's clock
 PROFILE_WARM, PROFILE_STEPS = 4, 8     # --profile: warm-up, profiled steps
@@ -400,6 +413,10 @@ PAR_INT8_TOL = 0.05
 PAR_PIPE = (4, 8, 128)
 PAR_PIPE_TOL = 1e-5
 PAR_LEAVES = ("router", "w_gate", "w_out", "w_up")
+# the tooling phase: the dry run's cells (stablelm-1.6b, single mesh, on
+# meta) and the train steps timed for the MFU (the first one not counted)
+TOOLING_CELLS = ("prefill_32k", "decode_32k")
+TOOLING_STEPS = 5
 
 
 def fail(msg: str) -> None:
@@ -501,10 +518,13 @@ def words_equal(torch, got, want, what: str) -> int:
 
 def set_bound(r: dict) -> None:
     """The least time the card could take for the row's work: the larger
-    of its bytes (each input read once, each output written once) over the
-    HBM rate and its operations over the peak rate for their type;
-    ``bound_by`` names which."""
-    by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    of its bytes (each input read once, each output written once, from
+    ``kernels.launch.kernel_cost``) over the HBM rate and its operations
+    over the peak rate for their type (the H100's data sheet,
+    ``launch.mesh``); ``bound_by`` names which."""
+    from repro_torch.launch.mesh import HBM_BW
+
+    by_bytes = r["bytes"] / HBM_BW * 1e3
     by_ops = r["flops"] / r["peak"] * 1e3 if r.get("flops") else 0.0
     r["bound_ms"] = max(by_bytes, by_ops)
     r["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
@@ -797,7 +817,8 @@ def leaves_row(torch, xs, flush, what: str) -> dict:
         return time_ms(torch, fn, flush=flush, read_flush=read_flush,
                        spin=spin)
     row = dict(
-        max_abs_err=err, bytes=2 * nbytes, leaves=len(xs),
+        max_abs_err=err, leaves=len(xs),
+        bytes=kl.kernel_cost("medusa_transpose_tiles", leaves=xs)[0],
         ms=timed(many), single_ms=timed(single), plain_ms=timed(plain),
         library_ms=timed(library), copy_ms=timed(copy),
         one_leaf_ms=timed(one), ms_read_flush=timed(many, True),
@@ -926,6 +947,7 @@ def sparse_rows(torch, words, lines, idx, n: int, label: str) -> dict:
     is held bit for bit against its plain version and a second launch, and
     timed (warm L2) beside its plain version and one library call; returns
     the rows of the kernels line."""
+    from repro_torch.kernels import launch as kl
     from repro_torch.kernels import medusa_transpose as mt
 
     w = lines.shape[2]
@@ -938,8 +960,8 @@ def sparse_rows(torch, words, lines, idx, n: int, label: str) -> dict:
                     f"gather ({label} shape)")
     bit_equal(torch, mt.gather_burst_network_tiles(lines, idx, n), got,
               f"gather ({label}) launched again")
-    valid = int(((idx >= 0) & (idx < lines.shape[0])).sum())
-    nbytes = valid * n * w * 4 + k * 4 + k * n * w * 4
+    nbytes = kl.kernel_cost("gather_burst_network_tiles", lines=lines,
+                            idx=idx, out=got)[0]
     lib_valid = (idx >= 0) & (idx < lines.shape[0])
     lib_idx = torch.where(lib_valid, idx, 0).long()
 
@@ -979,7 +1001,8 @@ def sparse_rows(torch, words, lines, idx, n: int, label: str) -> dict:
     live = idx[(idx >= 0) & (idx < into0.shape[0])]
     check(live.unique().numel() == live.numel(), "scatter rows not unique")
     # a sentinel frame is neither read from ``banked`` nor written
-    nbytes = 2 * live.numel() * n * w * 4 + k * 4
+    nbytes = kl.kernel_cost("scatter_burst_network_tiles", banked=banked,
+                            idx=idx, into=into_k)[0]
     lib_keep = ((idx >= 0) & (idx < into0.shape[0])).nonzero().view(-1)
 
     def scatter_library():
@@ -1013,8 +1036,9 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     bit for bit against its plain version and timed beside it and one
     library call; returns the rows of the kernels line."""
     from repro_torch.configs import get_config
-    from repro_torch.models import common as cm
+    from repro_torch.kernels import launch as kl
     from repro_torch.kernels import medusa_transpose as mt
+    from repro_torch.models import common as cm
 
     cfg = get_config(arch)
     n, ps = cfg.resolved_fabric.n_ports, cfg.resolved_fabric.page_size
@@ -1045,7 +1069,8 @@ def burst_rows(torch, gen, words, arch: str, prompt: int, gen_len: int):
     check(torch.equal(mt.burst_network_tiles(got, n), tile),
           "burst is not an involution")
     rows["burst_network_tiles"] = dict(
-        max_abs_err=err, bytes=2 * tile.numel() * 4,
+        max_abs_err=err, bytes=kl.kernel_cost("burst_network_tiles",
+                                              tile=tile)[0],
         ms=time_ms(torch, lambda: mt.burst_network_tiles(tile, n)),
         plain_ms=time_ms(torch, lambda: mt.burst_network_plain(tile, n)),
         library_ms=time_ms(torch, lambda: tile.transpose(0, 1).contiguous()),
@@ -1232,10 +1257,12 @@ def interconnect_phase(torch, dev):
     version, the edge cases, and the timings (kernel, plain version, one
     library call).  Returns the rows of the kernels line by path."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import launch as kl
     from repro_torch.kernels import medusa_transpose as mt
     from repro_torch.kernels import ops
     from repro_torch.kernels import rotator as rot
     from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, PEAK_FLOPS_FP32
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1318,7 +1345,7 @@ def interconnect_phase(torch, dev):
         words_equal(torch, library(), got, "read network library yardstick")
         rows[path] = {"read_network_tiles": dict(
             launches=launches[("k5", path)], max_abs_err=err,
-            bytes=2 * lines.numel() * lines.element_size(),
+            bytes=kl.kernel_cost("read_network_tiles", lines=lines)[0],
             ms=time_ms(torch, lambda: mt.read_network_tiles(lines, n)),
             plain_ms=time_ms(torch, lambda: mt.read_network_plain(lines, n)),
             library_ms=time_ms(torch, library),
@@ -1338,7 +1365,8 @@ def interconnect_phase(torch, dev):
     words_equal(torch, rotate_library(), got, "rotate library yardstick")
     rows[k6_path]["barrel_rotate_groups"] = dict(
         launches=launches[("k6", k6_path)], max_abs_err=err,
-        bytes=2 * lines_s.numel() * lines_s.element_size() + 4 * g,
+        bytes=kl.kernel_cost("barrel_rotate_groups", x=lines_s,
+                             amounts=amounts)[0],
         ms=time_ms(torch, lambda: rot.barrel_rotate_groups(lines_s, amounts)),
         plain_ms=time_ms(torch, lambda: rot.barrel_rotate_plain(lines_s,
                                                                 amounts)),
@@ -1364,13 +1392,12 @@ def interconnect_phase(torch, dev):
         words_equal(torch, sm.stream_matmul(x, w), got,
                     f"matmul ({label}) launched again")
         cold = flush if "decode" in label else None
+        nbytes, flops = kl.kernel_cost("stream_matmul", x=x, w=w, out=got)
         rows[f"{INTERCONNECT}: {label}"] = {"stream_matmul": dict(
             launches=launches[("k7", label)], max_abs_err=err,
-            matmul_route=r,
-            bytes=(m * k + k * n + m * n) * x.element_size(),
-            flops=2 * m * n * k,
-            peak=FP32_FLOP_PER_S if x.dtype == torch.float32
-            else BF16_FLOP_PER_S,
+            matmul_route=r, bytes=nbytes, flops=flops,
+            peak=PEAK_FLOPS_FP32 if x.dtype == torch.float32
+            else PEAK_FLOPS_BF16,
             ms=time_ms(torch, lambda: sm.stream_matmul(x, w), flush=cold),
             plain_ms=time_ms(torch, lambda: sm.stream_matmul_plain(x, w),
                              flush=cold),
@@ -1487,59 +1514,30 @@ def serve(torch, cfg, params, prompts, gen_len: int, **engine_kw):
 
 
 def census(torch, label: str, step, out_name: str) -> None:
-    """``torch.profiler`` over ``PROFILE_STEPS`` calls of ``step()`` (after
-    ``PROFILE_WARM`` unprofiled ones): the device's busy share of the window
-    (union of kernel intervals over the host's wall time), kernels, launch
-    calls and aten ops per step, and device time by kernel; the full tables
-    go to ``chiprun_out/profile_<out_name>.txt``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """``repro_torch.launch.profile.device_census`` over ``PROFILE_STEPS``
+    calls of ``step()`` (after ``PROFILE_WARM`` unprofiled ones): the
+    device's busy share of the window (union of kernel intervals over the
+    host's wall time), kernels, launch calls and aten ops per step, and
+    device time by kernel, printed; the full tables go to
+    ``chiprun_out/profile_<out_name>.txt``."""
+    from repro_torch.launch.profile import device_census
 
-    for _ in range(PROFILE_WARM):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = list(prof.events())
-    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
-    cpu_ev = [e for e in events if e.device_type == DeviceType.CPU]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_ev)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:                       # union of kernel intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_kernel: dict = {}
-    for e in dev_ev:
-        c, t = by_kernel.get(e.name, (0, 0.0))
-        by_kernel[e.name] = (c + 1, t + e.time_range.elapsed_us())
-    aten = sum(e.name.startswith("aten::") for e in cpu_ev)
-    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                              "cudaLaunchKernelExC", "cuLaunchKernelEx")
-                   for e in cpu_ev)
-    step_ms = wall_us / PROFILE_STEPS / 1e3
-    print(f"profile {label}: {PROFILE_STEPS} steps, {step_ms:.3f} ms per "
-          f"step under the profiler; device busy {busy / 1e3:.3f} ms of "
-          f"{wall_us / 1e3:.3f} ms = {100 * busy / wall_us:.2f} %; "
-          f"{len(dev_ev) / PROFILE_STEPS:.1f} device kernels, "
-          f"{launches / PROFILE_STEPS:.1f} launch calls and "
-          f"{aten / PROFILE_STEPS:.1f} aten ops per step", flush=True)
-    check(bool(dev_ev), "the profiler recorded no device kernels")
-    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
-    lines = [f"{t / PROFILE_STEPS / 1e3:9.4f} ms/step {c / PROFILE_STEPS:7.1f}"
-             f" launches/step  {name}" for name, (c, t) in ranked]
+    c = device_census(step, PROFILE_WARM, PROFILE_STEPS)
+    print(f"profile {label}: {c['steps']} steps, {c['step_ms']:.3f} ms per "
+          f"step under the profiler; device busy {c['busy_ms']:.3f} ms of "
+          f"{c['wall_ms']:.3f} ms = {100 * c['busy_share']:.2f} %; "
+          f"{c['kernels_per_step']:.1f} device kernels, "
+          f"{c['launch_calls_per_step']:.1f} launch calls and "
+          f"{c['aten_ops_per_step']:.1f} aten ops per step", flush=True)
+    check(c["kernels_per_step"] > 0, "the profiler recorded no device kernels")
+    lines = [f"{t / c['steps'] / 1e3:9.4f} ms/step {n / c['steps']:7.1f}"
+             f" launches/step  {name}" for name, n, t in c["by_kernel"]]
     for line in lines[:12]:
         print(f"profile {label} kernel: {line[:150]}", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"profile_{out_name}.txt").write_text(
-        "\n".join(lines) + "\n\n" + prof.key_averages().table(
-            sort_by="self_cpu_time_total", row_limit=60) + "\n")
+        "\n".join(lines) + "\n\n" + c["table"] + "\n")
 
 
 def profile_serve(torch, cfg, params, prompts) -> None:
@@ -2005,6 +2003,7 @@ def fsdp_phase(torch, dev, rows) -> None:
     must be the streamed leaves' sizes.  Then kernel 3 at that weight tile,
     bit for bit against its plain version and timed."""
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import launch as kl
     from repro_torch.kernels import medusa_transpose as mt
     from repro_torch.models import lm
 
@@ -2060,7 +2059,8 @@ def fsdp_phase(torch, dev, rows) -> None:
           "burst (serve_fsdp weight tile) is not an involution")
     del got
     r = rows[FSDP]["burst_network_tiles"]
-    r.update(max_abs_err=err, bytes=2 * tile.numel() * 4,
+    r.update(max_abs_err=err, bytes=kl.kernel_cost("burst_network_tiles",
+                                                   tile=tile)[0],
              ms=time_ms(torch, lambda: mt.burst_network_tiles(tile, n)),
              plain_ms=time_ms(torch, lambda: mt.burst_network_plain(tile,
                                                                      n)),
@@ -4772,6 +4772,171 @@ def parallel_phase(torch, dev) -> None:
     print(f"parallel: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def tooling_cells(torch) -> None:
+    """(a) The dry run on meta: stablelm-1.6b's ``prefill_32k`` and
+    ``decode_32k`` cells over the (16, 16) mesh, one line each."""
+    from repro_torch.launch import dryrun
+
+    for shape in TOOLING_CELLS:
+        rec = dryrun.run_cell(TRAIN_ARCH, shape, False)
+        r = rec["roofline"]
+        check(rec["status"] == "ok" and rec["parsed"]["flops"] > 0,
+              f"dry run {TRAIN_ARCH} {shape}: {rec}")
+        print(f"tooling dry run {TRAIN_ARCH} {shape} {rec['mesh']} on meta: "
+              f"compute {r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, "
+              f"collective {r['collective_s']:.4e} s, dominant "
+              f"{r['dominant']}; model_flops {rec['model_flops']:.4e}, "
+              f"census flops {rec['parsed']['flops']:.4e} (useful "
+              f"{rec['useful_compute_ratio']:.4f}), bytes "
+              f"{rec['parsed']['bytes']:.4e}, peak "
+              f"{rec['memory']['peak_bytes']:.4e} B; stand-ins "
+              f"{rec['stand_ins']}; run {rec['run_s']} s", flush=True)
+
+
+def tooling_train(torch, dev, card: str):
+    """(b) The census of the train phase's stablelm-1.6b step (8 x 64) on
+    the card: its FLOPs against the model's, the step's MFU, and with the
+    kernels off the census equal to the same step's on meta (FLOPs
+    exactly; bytes, or each op line that differs named).  Returns the
+    census (kernels on)."""
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze_step, model_flops
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import init_opt_state
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(lr=1e-4, warmup_steps=1, total_steps=100,
+                       grad_accum=1)
+    built = build_train_step(cfg, shape, tcfg)
+    params = api.init_params(cfg, seed=0, device=dev)
+    state = {"params": params,
+             "opt": init_opt_state(params, tcfg, master=False)}
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    times = []
+    for i in range(TOOLING_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = built.fn(state, data.batch_at(i))
+        float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times[1:])
+    _, on = analyze_step(built.fn, state, data.batch_at(0))
+    ops.use_kernels(False)
+    try:
+        _, off = analyze_step(built.fn, state, data.batch_at(0))
+        _, meta = analyze_step(built.fn, *dryrun.step_inputs(
+            built, cfg, shape, "meta"))
+    finally:
+        ops.use_kernels(True)
+    del state, params
+    free_model(torch, "tooling train")
+    mf = model_flops(cfg, shape)
+    check(on.flops == off.flops == meta.flops,
+          f"tooling train: census flops on the card {on.flops} (kernels "
+          f"off {off.flops}) != on meta {meta.flops}")
+    apart = sorted((line for line in set(off.lines) | set(meta.lines)
+                    if off.lines.get(line, [0, 0])[1]
+                    != meta.lines.get(line, [0, 0])[1]))
+    print(f"tooling train {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ} on the "
+          f"card: census flops {on.flops} = {on.flops / mf:.4f} x "
+          f"model_flops {mf:.6e}; bytes {on.bytes}, peak live "
+          f"{on.peak_bytes} B, {sum(on.op_counts.values())} ops; median "
+          f"step (steps 2-{TOOLING_STEPS}) {med * 1e3:.1f} ms, MFU "
+          f"{mf / (med * PEAK_FLOPS_BF16):.5f} of {PEAK_FLOPS_BF16:.4g} "
+          f"flop/s ({card})", flush=True)
+    print(f"tooling train kernels off, card vs meta: flops {off.flops} == "
+          f"{meta.flops}; bytes {off.bytes} vs {meta.bytes} "
+          f"({'equal' if off.bytes == meta.bytes else 'differ'}); "
+          f"stand-ins on meta {meta.stand_ins}; op lines apart: "
+          f"{len(apart)}", flush=True)
+    for line in apart[:20]:
+        print(f"tooling train line apart: {line[:120]}: card "
+              f"{off.lines.get(line, [0, 0])[1]} B, meta "
+              f"{meta.lines.get(line, [0, 0])[1]} B", flush=True)
+    return on
+
+
+def tooling_engine(torch, dev, rows) -> None:
+    """(c) The census of one fused decode step of the stablelm-1.6b engine
+    (4 x (448 + 64), every page mapped) with the kernels on: kernels 1-2
+    appear as ops, as many as the launch counts of the step, and each
+    launch's bytes are those of the path's row of the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import launch as kl
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.models import api
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("stablelm-1.6b")
+    params = api.init_params(cfg, seed=0, device=dev)
+    prompts = SyntheticLM(cfg, batch=ENGINE_SLOTS, seq=STABLELM_PROMPT,
+                          seed=0).batch_at(0)["tokens"]
+    eng = ServingEngine(cfg, params, max_slots=ENGINE_SLOTS,
+                        t_max=STABLELM_PROMPT + 64, fused_gather=True)
+    for i in range(ENGINE_SLOTS):
+        eng.submit(Request(i, prompts[i], max_new_tokens=64))
+    for _ in range(3):                       # admission, then every page
+        eng.step()
+    torch.cuda.synchronize()
+    kl.reset_launch_counts()
+    _, costs = analyze_step(eng.step)
+    torch.cuda.synchronize()
+    counts = kl.launch_counts()
+    del eng, params
+    free_model(torch, "tooling engine")
+    by_row = rows["stablelm-1.6b engine"]
+    for name in ("gather_burst_network_tiles", "scatter_burst_network_tiles"):
+        calls = costs.op_counts.get(name, 0)
+        lines = [rec for rec in costs.lines.values() if rec[0] == name]
+        per = {rec[1] // rec[4] for rec in lines}
+        check(calls == counts[name] == 2,
+              f"tooling engine: {name} {calls} ops in the census, "
+              f"{counts[name]} launches")
+        check(per == {by_row[name]["bytes"]},
+              f"tooling engine: {name} {per} bytes a launch, the kernels "
+              f"line's row {by_row[name]['bytes']}")
+        print(f"tooling engine stablelm-1.6b decode step: {name} {calls} "
+              f"ops = {counts[name]} launches, {per.pop()} bytes each = the "
+              f"kernels line's row", flush=True)
+    print(f"tooling engine step: flops {costs.flops}, bytes {costs.bytes}, "
+          f"{sum(costs.op_counts.values())} ops; launches "
+          f"{dict((k, v) for k, v in counts.items() if v)}", flush=True)
+
+
+def tooling_phase(torch, dev, rows, card: str) -> None:
+    """ROADMAP item 10b on the card: (a) :func:`tooling_cells`, (b)
+    :func:`tooling_train`, (c) :func:`tooling_engine`, (d)
+    ``profile.breakdown``'s top 10 op lines of (b)'s step, (e) the profile
+    CLI on the card at a cut decode shape."""
+    from repro_torch.launch import profile
+
+    t_phase = time.perf_counter()
+    tooling_cells(torch)
+    train = tooling_train(torch, dev, card)
+    tooling_engine(torch, dev, rows)
+    ranked, totals = profile.breakdown(train)
+    check(totals == {"bytes": train.bytes, "flops": train.flops,
+                     "collective_bytes": train.collective_bytes},
+          f"breakdown totals {totals} are not the census's")
+    for c in ranked[:10]:
+        print(f"tooling breakdown {TRAIN_ARCH} train: {c.bytes:.4e} B "
+              f"({100 * c.bytes / totals['bytes']:.2f} %), {c.flops:.4e} "
+              f"flop, {train.lines[c.line][4]} calls: {c.line[:100]}",
+              flush=True)
+    profile.main(["--arch", TRAIN_ARCH, "--shape", "decode_32k", "--batch",
+                  str(ENGINE_SLOTS), "--seq", "2048", "--device", "cuda",
+                  "--top", "5"])
+    free_model(torch, "tooling profile CLI")
+    print(f"tooling: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def card_vs_cpu(torch, dev):
     """The smoke configs in float32, the same parameters on both devices:
     first-step logits within 1e-4 (engine step; gemma3 also one-shot);
@@ -4907,6 +5072,7 @@ def main() -> None:
     read_sim_phase(torch, dev)
     sharded_phase(torch, dev, rows)
     parallel_phase(torch, dev)
+    tooling_phase(torch, dev, rows, card)
     card_vs_cpu(torch, dev)
 
     # one entry per kernel and path: its launches on that path's runs, its

@@ -67,6 +67,12 @@ class Fabric:
     def for_model(cls, cfg) -> "Fabric":
         return cls(cfg.resolved_fabric)
 
+    @classmethod
+    def make(cls, n_ports: int, impl: str = "medusa", **kw) -> "Fabric":
+        """The fabric of ``n_ports`` ports on network ``impl`` (the other
+        :class:`FabricConfig` fields from ``kw``), validated."""
+        return cls(FabricConfig(n_ports=n_ports, impl=impl, **kw).validate())
+
     # -- geometry -------------------------------------------------------------
     @property
     def n_ports(self) -> int:

@@ -11,13 +11,20 @@ autograd backward (:func:`backward_launches`, entered by the backward of
 the port's autograd Functions) are counted in the totals and again in
 :func:`backward_launch_counts`, so a training step shows how many of its
 launches were the adjoint movements.
+
+Beside its count a wrapper reports the launch and its operands
+(:func:`report`) to the cost census of :mod:`repro_torch.launch.
+hlo_analysis`, which cannot see a launch through ``ctypes`` otherwise;
+:func:`kernel_cost` prices a launch from its operands.  The port's
+collectives report to the same census (:func:`report_collective`).  With
+no census listening a report costs one test of an empty list.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -37,6 +44,10 @@ _backward: Dict[str, int] = dict.fromkeys(_launches, 0)
 _IN_BACKWARD = [0]
 
 _BOUND: Dict[str, object] = {}
+
+# the censuses listening to launches and collectives (entered by
+# repro_torch.launch.hlo_analysis.analyze_step): none outside a census
+_LISTENERS: list = []
 
 
 def launch_counts() -> Dict[str, int]:
@@ -73,6 +84,82 @@ def count(name: str) -> None:
     _launches[name] += 1
     if _IN_BACKWARD[0]:
         _backward[name] += 1
+
+
+@contextlib.contextmanager
+def listening(census):
+    """Hand every :func:`report` and :func:`report_collective` inside the
+    block to ``census`` (its ``kernel(name, operands)`` and
+    ``collective(kind, operands, results)``)."""
+    _LISTENERS.append(census)
+    try:
+        yield census
+    finally:
+        _LISTENERS.remove(census)
+
+
+def report(name: str, **operands: torch.Tensor) -> None:
+    """Report one launch of kernel ``name`` on ``operands`` (the keywords
+    of :func:`kernel_cost`) to the listening censuses; called by the
+    wrapper beside :func:`count`."""
+    for census in _LISTENERS:
+        census.kernel(name, operands)
+
+
+def report_collective(kind: str, operands: Sequence[torch.Tensor],
+                      results: Sequence[torch.Tensor]) -> None:
+    """Report one collective of the reference's HLO ``kind``
+    (``all-to-all``, ``collective-permute``, ``all-reduce``) over every
+    rank's ``operands`` and ``results`` to the listening censuses."""
+    for census in _LISTENERS:
+        census.collective(kind, operands, results)
+
+
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _live(idx: torch.Tensor, n_lines: int) -> int:
+    """The frame indices of ``idx`` that address a line of ``[0,
+    n_lines)``: the frames a sparse burst moves (a read of ``idx``)."""
+    return int(((idx >= 0) & (idx < n_lines)).sum())
+
+
+def kernel_cost(name: str, **ops: torch.Tensor) -> Tuple[int, int]:
+    """``(bytes, flops)`` of one launch of kernel ``name`` on its operands:
+    each input it reads once and each output it writes once, and the
+    operations it does.  The operands by kernel: ``lines, idx, out`` (the
+    gather: its live frames read, every output frame written, sentinel
+    frames as zeros), ``banked, idx, into`` (the scatter: live frames
+    read and written, sentinel frames neither), ``tile`` (the dense
+    burst), ``leaves`` (the layout engine: every leaf of the launch),
+    ``lines`` (the read network), ``x, amounts`` (the rotator), ``x, w,
+    out`` (the matmul, ``2·M·N·K`` operations).  The sparse bursts read
+    ``idx`` on the host to count their live frames; the others read
+    shapes only, so they price ``meta`` tensors too."""
+    if name == "gather_burst_network_tiles":
+        lines, idx = ops["lines"], ops["idx"]
+        frame = nbytes(lines[0]) if lines.shape[0] else 0
+        return (_live(idx, lines.shape[0]) * frame + nbytes(idx)
+                + nbytes(ops["out"]), 0)
+    if name == "scatter_burst_network_tiles":
+        into, idx = ops["into"], ops["idx"]
+        frame = nbytes(into[0]) if into.shape[0] else 0
+        return 2 * _live(idx, into.shape[0]) * frame + nbytes(idx), 0
+    if name == "burst_network_tiles":
+        return 2 * nbytes(ops["tile"]), 0
+    if name == "medusa_transpose_tiles":
+        return 2 * sum(nbytes(x) for x in ops["leaves"]), 0
+    if name == "read_network_tiles":
+        return 2 * nbytes(ops["lines"]), 0
+    if name == "barrel_rotate_groups":
+        return 2 * nbytes(ops["x"]) + nbytes(ops["amounts"]), 0
+    if name == "stream_matmul":
+        x, w = ops["x"], ops["w"]
+        m, k = x.shape
+        return (nbytes(x) + nbytes(w) + nbytes(ops["out"]),
+                2 * m * w.shape[1] * k)
+    raise KeyError(f"no cost model for kernel {name!r}")
 
 
 def bind(source: str, symbol: str, argtypes):

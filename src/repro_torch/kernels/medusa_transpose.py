@@ -109,6 +109,7 @@ def gather_burst_network_tiles(lines: torch.Tensor, idx: torch.Tensor,
     wb = kl.row_word(lines, out)
     fn = kl.bind("gather_burst", "medusa_gather_burst", _SPARSE_ARGS)
     kl.count("gather_burst_network_tiles")
+    kl.report("gather_burst_network_tiles", lines=lines, idx=idx, out=out)
     kl.raise_on(fn(lines.data_ptr(), idx.data_ptr(), out.data_ptr(), l, n, k,
                    w * lines.element_size() // wb, wb, kl.stream(lines)),
                 "gather_burst_network_tiles")
@@ -170,6 +171,8 @@ def scatter_burst_network_tiles(banked: torch.Tensor, idx: torch.Tensor,
     wb = kl.row_word(banked, into)
     fn = kl.bind("scatter_burst", "medusa_scatter_burst", _SPARSE_ARGS)
     kl.count("scatter_burst_network_tiles")
+    kl.report("scatter_burst_network_tiles", banked=banked, idx=idx,
+              into=into)
     kl.raise_on(fn(banked.data_ptr(), idx.data_ptr(), into.data_ptr(),
                    into.shape[0], n, g, w * banked.element_size() // wb, wb,
                    kl.stream(banked)), "scatter_burst_network_tiles")
@@ -202,6 +205,7 @@ def burst_network_tiles(tile: torch.Tensor, n_ports: int) -> torch.Tensor:
     wb = kl.row_word(tile, out)
     fn = kl.bind("burst_network", "medusa_burst_network", _DENSE_ARGS)
     kl.count("burst_network_tiles")
+    kl.report("burst_network_tiles", tile=tile)
     kl.raise_on(fn(tile.data_ptr(), out.data_ptr(), n,
                    tile.shape[2] * tile.element_size() // wb, wb,
                    kl.stream(tile)), "burst_network_tiles")
@@ -289,7 +293,7 @@ def medusa_transpose_many(xs) -> list:
         raise ValueError(f"medusa_transpose_many: leaves on {x0.device}, "
                          f"not a CUDA device")
     elt = kl.word_bytes(x0, "medusa_transpose_many")
-    out, moving, wb = [], [], 16
+    out, moving, leaves, wb = [], [], [], 16
     for x in xs:
         y = identity_view(x)
         if y is None:
@@ -301,21 +305,25 @@ def medusa_transpose_many(xs) -> list:
                 while row % wb or src % wb or dst % wb:
                     wb //= 2
                 moving.append((src, dst, lead[0] if lead else 1, r, c, row))
+                leaves.append(x)
         out.append(y)
     for i in range(0, len(moving), MAX_LEAVES):
-        _launch(moving[i:i + MAX_LEAVES], wb, x0.device)
+        _launch(moving[i:i + MAX_LEAVES], wb, x0.device,
+                leaves[i:i + MAX_LEAVES])
     return out
 
 
-def _launch(leaves, wb: int, device: torch.device) -> None:
-    """One launch of the layout engine over ``leaves``, each ``(src, dst,
-    B, R, C, row bytes)``, in row words of ``wb`` bytes."""
+def _launch(moving, wb: int, device: torch.device, leaves) -> None:
+    """One launch of the layout engine over ``moving``, each ``(src, dst,
+    B, R, C, row bytes)``, in row words of ``wb`` bytes; ``leaves`` are
+    the tensors they describe."""
     desc = array.array("q")
-    for src, dst, b, r, c, row in leaves:
+    for src, dst, b, r, c, row in moving:
         desc.extend((src, dst, b, r, c, row // wb))
     fn = kl.bind("medusa_transpose", "medusa_transpose_many", _TRANSPOSE_ARGS)
     kl.count("medusa_transpose_tiles")
-    kl.raise_on(fn(desc.buffer_info()[0], len(leaves), wb,
+    kl.report("medusa_transpose_tiles", leaves=leaves)
+    kl.raise_on(fn(desc.buffer_info()[0], len(moving), wb,
                    kl.raw_stream(device)), "medusa_transpose_many")
 
 
@@ -365,6 +373,7 @@ def read_network_tiles(lines: torch.Tensor, n_ports: int) -> torch.Tensor:
     wb = kl.row_word(lines, out)
     fn = kl.bind("read_network", "medusa_read_network", _READ_NETWORK_ARGS)
     kl.count("read_network_tiles")
+    kl.report("read_network_tiles", lines=lines)
     kl.raise_on(fn(lines.data_ptr(), out.data_ptr(), l // n, log_n,
                    w * lines.element_size() // wb, wb, kl.stream(lines)),
                 "read_network_tiles")

@@ -72,6 +72,7 @@ def barrel_rotate_groups(x: torch.Tensor,
     wb = kl.row_word(x, out)
     fn = kl.bind("barrel_rotate", "medusa_barrel_rotate", _ARGS)
     kl.count("barrel_rotate_groups")
+    kl.report("barrel_rotate_groups", x=x, amounts=amounts)
     kl.raise_on(fn(x.data_ptr(), amounts.data_ptr(), out.data_ptr(), g,
                    _num_stages(n), w * x.element_size() // wb, wb,
                    kl.stream(x)), "barrel_rotate_groups")

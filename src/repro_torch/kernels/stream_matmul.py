@@ -84,6 +84,7 @@ def stream_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     fn = kl.bind("stream_matmul", "medusa_stream_matmul", _ARGS)
     kl.count("stream_matmul")
+    kl.report("stream_matmul", x=x, w=w, out=out)
     r = route(m, n, k, x.dtype, x.data_ptr(), w.data_ptr())
     kl.raise_on(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
                    ROUTES[r], kl.stream(x)), f"stream_matmul ({r})")

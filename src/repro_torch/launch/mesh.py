@@ -123,3 +123,15 @@ def shard_blocks(x: torch.Tensor, spec: Tuple,
         raise ValueError(f"axis {axis} of {tuple(x.shape)} does not split "
                          f"into {mesh.size} equal shard blocks")
     return list(x.chunk(mesh.size, dim=axis))
+
+
+# NVIDIA H100 SXM hardware constants used by the roofline analysis
+# (:mod:`repro_torch.launch.hlo_analysis`; NVIDIA's data sheet, dense
+# rates at the 700 W power limit): the reference's names, the card's values.
+PEAK_FLOPS_BF16 = 989.4e12        # bf16 on the tensor cores, per card
+PEAK_FLOPS_FP32 = 66.9e12         # float32 outside the tensor cores
+HBM_BW = 3.35e12                  # bytes/s per card
+# NVLink 4, bytes/s a direction per card.  On one card the port's
+# exchanges are device copies (every mesh position is the one device),
+# so this term prices what a mesh over several cards would send.
+LINK_BW = 450e9

@@ -19,6 +19,12 @@ in one transpose.  Both move the same blocks, bit for bit.
 data-parallel gradient mean) reduce over the ranks: they return the one
 tensor (or list) that every rank holds afterwards, in the reference's
 arithmetic, bit for bit.
+
+Each collective reports itself to the cost census of :mod:`repro_torch.
+launch.hlo_analysis` (:func:`repro_torch.kernels.launch.
+report_collective`) as the reference's HLO ops would show: one
+``collective-permute`` a rotation, one ``all-to-all``, one ``all-reduce``
+a sum or maximum over ranks, over every rank's operands and results.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import torch
+
+from repro_torch.kernels import launch as kl
 
 
 def _ppermute(xs: Sequence[torch.Tensor], shift: int) -> List[torch.Tensor]:
@@ -48,6 +56,7 @@ def ring_all_to_all(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         # step s: every rank sends the block destined for rank (d+s) % S,
         # which stores it at (dst - s) % S, the sender's rank
         sent = [blocks[d][(d + s) % n] for d in range(n)]
+        kl.report_collective("collective-permute", sent, sent)
         for dst, recv in enumerate(_ppermute(sent, s)):
             out[dst][(dst - s) % n].copy_(recv)
     return out
@@ -57,7 +66,9 @@ def xla_all_to_all(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The "crossbar": the monolithic all-to-all on the same layout, one
     block transpose ``out[r][o] = blocks[o][r]``."""
     n = len(blocks)
-    return [torch.stack([blocks[o][r] for o in range(n)]) for r in range(n)]
+    out = [torch.stack([blocks[o][r] for o in range(n)]) for r in range(n)]
+    kl.report_collective("all-to-all", blocks, out)
+    return out
 
 
 def ring_all_gather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -67,6 +78,7 @@ def ring_all_gather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     held = [[b] for b in blocks]
     cur = list(blocks)
     for _ in range(n - 1):
+        kl.report_collective("collective-permute", cur, cur)
         cur = _ppermute(cur, 1)
         for r in range(n):
             held[r].append(cur[r])
@@ -80,10 +92,12 @@ def _psum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     reduces the rank axis (one rank's tensor is its own sum, its -0.0
     kept)."""
     if len(xs) == 1:
-        return xs[0]
-    total = torch.zeros_like(xs[0])
-    for x in xs:
-        total = total + x
+        total = xs[0]
+    else:
+        total = torch.zeros_like(xs[0])
+        for x in xs:
+            total = total + x
+    kl.report_collective("all-reduce", xs, [total] * len(xs))
     return total
 
 
@@ -93,8 +107,10 @@ def compressed_psum(gs: Sequence[torch.Tensor]) -> torch.Tensor:
     ``max(max|g|, 1e-12) / 127``; round half to even, clipped to ±127),
     the int8 values sum as int32, and the sum comes back times the scale
     (float32)."""
-    scale = torch.stack([torch.clamp(torch.max(torch.abs(g)), min=1e-12)
-                         / 127.0 for g in gs]).amax()
+    scales = [torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+              for g in gs]
+    scale = torch.stack(scales).amax()
+    kl.report_collective("all-reduce", scales, [scale] * len(gs))
     qs = [torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
           for g in gs]
     total = _psum([q.to(torch.int32) for q in qs])

@@ -488,6 +488,30 @@ def test_swap_minor_on_every_impl(impl):
     _same(got, JFabric(JFabricConfig(**cfg)).swap_minor(jx), "bfloat16")
 
 
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("impl", ["medusa", "crossbar", "oracle"])
+def test_interconnect_shim_matches_reference(impl, n):
+    """The deprecated ``Interconnect`` warns as the reference's does and
+    delegates to ``Fabric.make(n_ports, impl)``: read, write, swap_minor
+    and the latency, bit for bit against the reference's shim."""
+    from repro.core import Interconnect as JInterconnect
+    from repro_torch.core import Interconnect
+
+    rng = np.random.default_rng(n)
+    jl, tl = _payload(rng, (2 * n, n, 3), "float32")
+    jx, tx = _payload(rng, (2, n, 2 * n), "float32")
+    with pytest.warns(DeprecationWarning, match="Fabric.make"):
+        ic = Interconnect(n_ports=n, impl=impl)
+    with pytest.warns(DeprecationWarning):
+        jic = JInterconnect(n_ports=n, impl=impl)
+    banked = ic.read(tl)
+    _same(banked, jic.read(jl), "float32")
+    _same(ic.write(banked), jic.write(jic.read(jl)), "float32")
+    _same(ic.write(banked), jl, "float32")
+    _same(ic.swap_minor(tx), jic.swap_minor(jx), "float32")
+    assert ic.latency_cycles == jic.latency_cycles
+
+
 def test_fused_fabric_is_refused():
     """The ``fused`` fabric banks no KV: its consumers attend over the
     line-major cache, so it has no layout engine, and asking it for one
