@@ -1,0 +1,9 @@
+"""device_idle_share (%, device_trace): the share of the profiled slice's
+wall time in which no operation ran on the device (one minus the union of
+the device operations' intervals, bench/yardstick/intervals.py)."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
